@@ -38,3 +38,9 @@ DATA = pathlib.Path(__file__).resolve().parent.parent / "data"
 @pytest.fixture(scope="session")
 def data_dir() -> pathlib.Path:
     return DATA
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one"
+    )
