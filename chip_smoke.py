@@ -4,8 +4,8 @@
 
 Phases, each printed on its own line; any failure raises and exits nonzero:
 
-1. setup: CUDA, nvcc, the card's name and power limit; build both kernels
-   from ``msa_tpu_torch/csrc`` (one nvcc per source, in parallel);
+1. setup: CUDA, nvcc, the card's name and power limit; build the three
+   kernels from ``msa_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. the fill kernel against ``band_fill_ref`` on the card, on three pairs of
    2,000-5,000 characters at rb = 1023 (several bands, several snapshots a
    band) and on one pair at the main path's geometry (rb = 8191, 3 bands):
@@ -13,13 +13,26 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    equal as int32;
 3. the walk kernel against ``walk_ref`` on the same fill output: move words
    and counts equal, alignments equal to the native host oracle;
-4. big13 end to end through ``msa_tpu_torch.cli`` with ``--backend cuda``:
-   the full golden chain hash and all 78 penalties, both kernels launched,
-   all 78 pairs on the device, twice; each kernel alone on big13; then
-   mseq1, which stays on the host, and the other bundled datasets (permuted
-   big13, and the two xulin sets against their recorded host-oracle
-   goldens in data/host_goldens.jsonl, skewed pairs included);
-5. one JSON line of the kernels' launches, errors and times, then the last
+4. big13 end to end through ``msa_tpu_torch.cli`` with ``--backend cuda``
+   and ``fill_mode=banded``: the full golden chain hash and all 78
+   penalties, both kernels launched, all 78 pairs on the device, twice; each
+   kernel alone on big13; then mseq1, which stays on the host, and the other
+   bundled datasets (permuted big13, and the two xulin sets against their
+   recorded host-oracle goldens in data/host_goldens.jsonl, skewed pairs
+   included);
+5. the conveyor fill kernel against ``conveyor_fill_ref`` on the card, in
+   four segments: (a) one sweep of many tenants at rb = 1024 (short and
+   long pairs, both orientations of a skewed pair, so some are transposed),
+   (b) one sweep at the main path's rb = 7168 with three pairs of
+   15,000-20,000 characters: scores, brow on its DP cells and snapshots on
+   theirs equal as int32; then the walk on the conveyor layout against
+   ``walk_ref``, alignments swapped back equal to the host oracle;
+6. big13 through the CLI with ``fill_mode=conveyor``, twice (one sweep a
+   pair), then with 26 sweeps (three pairs each): golden hash and penalties,
+   the conveyor fill and the walk launched, 78 conveyor pairs; each kernel
+   alone on big13; the banded and conveyor times side by side; then the
+   permuted big13 and the xulin sets under ``fill_mode=conveyor``;
+7. one JSON line of the kernels' launches, errors and times, then the last
    line ``{"ok": true, "device": {...}}``.
 
 It needs the repository around it and a CUDA device, and exits nonzero
@@ -31,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -110,16 +124,17 @@ def check_case(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
           max_abs_err=fill_err, all_entries_equal=torch.equal(fill.snaps, ref.snaps),
           ms=fill_ms, plain_ms=fill_plain_ms)
 
-    words, counts = wk.walk(table, plan, fill, pxy, pgap)
-    (rwords, rcounts), walk_plain_ms = host_ms(lambda: wk.walk_ref(table, plan, fill, pxy, pgap))
-    walk_ms = cuda_ms(lambda: wk.walk(table, plan, fill, pxy, pgap), reps=3)
+    wplan = wk.banded_walk_plan(plan)
+    args = (table, wplan, fill.rows, fill.snaps, pxy, pgap)
+    words, counts = wk.walk(*args)
+    (rwords, rcounts), walk_plain_ms = host_ms(lambda: wk.walk_ref(*args))
+    walk_ms = cuda_ms(lambda: wk.walk(*args), reps=3)
     walk_err = max((words - rwords).abs().max().item(), (counts - rcounts).abs().max().item())
     if walk_err != 0:
         raise AssertionError(f"{name}: walk kernel differs from walk_ref by {walk_err}")
     words, counts, scores = words.cpu().numpy(), counts.cpu().numpy(), fill.score.cpu().numpy()
     for p, (i, j) in enumerate(pairs):
-        off = int(plan.params[p, bf.P_MOVES_OFF])
-        moves = wk.decode_moves(words[None, off:], counts[p:p + 1])
+        moves = wk.pair_moves(words, counts, wplan, p)
         got = (int(scores[p]), *moves_to_alignment(genes[i], genes[j], moves))
         if got != nw_align_native(genes[i], genes[j], pxy, pgap):
             raise AssertionError(f"{name}: pair {p} alignment differs from the host oracle")
@@ -127,6 +142,96 @@ def check_case(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
           max_abs_err=walk_err, alignments="equal to nw_align_native",
           ms=walk_ms, plain_ms=walk_plain_ms)
     return {"fill": (fill_err, fill_ms, fill_plain_ms), "walk": (walk_err, walk_ms, walk_plain_ms)}
+
+
+def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=False,
+                        pxy=3, pgap=2):
+    """The conveyor fill and the walk on its layout against their plain versions.
+
+    ``split_ramp``: fail unless a segment boundary lands inside a band's ramp.
+    """
+    import numpy as np
+    import torch
+
+    from msa_tpu.native import nw_align_native
+    from msa_tpu.utils.alignment import moves_to_alignment
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import conveyor as cv
+    from msa_tpu_torch.ops import walk as wk
+    from msa_tpu_torch.state import valid_brow_cells, valid_conveyor_cells
+
+    wl = cv.plan_sweeps(genes, pairs, rb, snap_k, conveyors=1)
+    plan = wl.sweeps[0]
+    table = torch.from_numpy(bf.gene_table(genes)).cuda()
+    n_seg = -(-wl.max_chunks // segments)
+    ranges = [(c0, min(c0 + n_seg, wl.max_chunks)) for c0 in range(0, wl.max_chunks, n_seg)]
+    # A segment boundary inside a ramp (a band's first two chunks at rb = K).
+    ramp_split = any(bp.start // snap_k < c0 <= (bp.start + rb) // snap_k
+                     for bp in plan.bands for c0, _ in ranges[1:])
+    if split_ramp and not ramp_split:
+        raise AssertionError(f"{name}: no segment boundary inside a ramp")
+
+    def fill(run):
+        state = cv.conveyor_state(wl, table.device)
+        for c0, c1 in ranges:
+            run(table, wl, pxy, pgap, c0, c1, state)
+        return state
+
+    got = fill(cv.conveyor_fill)
+    ref, fill_plain_ms = host_ms(lambda: fill(cv.conveyor_fill_ref))
+    fill_ms = cuda_ms(lambda: fill(cv.conveyor_fill), reps=3)
+    snaps_ok = torch.from_numpy(valid_conveyor_cells(plan).reshape(-1)).cuda()
+    brow_ok = torch.from_numpy(valid_brow_cells(plan).reshape(-1)).cuda()
+    fill_err = max(
+        (got.score - ref.score).abs().max().item(),
+        (got.brow - ref.brow)[brow_ok].abs().max().item(),
+        (got.snaps - ref.snaps)[snaps_ok].abs().max().item(),
+    )
+    if fill_err != 0:
+        raise AssertionError(f"{name}: conveyor fill differs from conveyor_fill_ref by {fill_err}")
+    phase("conveyor_fill_vs_plain", case=name, pairs=wl.num_pairs, transposed=sum(wl.swapped),
+          rb=rb, snap_k=snap_k, bands=len(plan.bands), chunks=plan.n_chunks,
+          segments=len(ranges), segment_boundary_in_a_ramp=ramp_split,
+          max_abs_err=fill_err, all_entries_equal=torch.equal(got.snaps, ref.snaps),
+          ms=fill_ms, plain_ms=fill_plain_ms)
+
+    wplan = cv.conveyor_walk_plan(wl, genes, range(wl.num_pairs))
+    args = (table, wplan, got.brow, got.snaps, pxy, pgap)
+    words, counts = wk.walk(*args)
+    (rwords, rcounts), walk_plain_ms = host_ms(lambda: wk.walk_ref(*args))
+    walk_ms = cuda_ms(lambda: wk.walk(*args), reps=3)
+    walk_err = max((words - rwords).abs().max().item(), (counts - rcounts).abs().max().item())
+    if walk_err != 0:
+        raise AssertionError(f"{name}: walk on the conveyor layout differs from walk_ref by {walk_err}")
+    words, counts, scores = words.cpu().numpy(), counts.cpu().numpy(), got.score.cpu().numpy()
+    for g in range(wl.num_pairs):
+        xi, yi = wl.ordered[g]
+        ax, ay = moves_to_alignment(genes[xi], genes[yi], wk.pair_moves(words, counts, wplan, g))
+        if wl.swapped[g]:
+            ax, ay = ay, ax
+        i, j = pairs[wl.order[g]]
+        if (int(scores[g]), ax, ay) != nw_align_native(genes[i], genes[j], pxy, pgap):
+            raise AssertionError(f"{name}: pair ({i}, {j}) alignment differs from the host oracle")
+    phase("conveyor_walk_vs_plain", case=name, moves=[int(c) for c in counts],
+          max_abs_err=walk_err, alignments="swapped back, equal to nw_align_native",
+          ms=walk_ms, plain_ms=walk_plain_ms)
+    return fill_err, fill_ms, fill_plain_ms
+
+
+@contextlib.contextmanager
+def port_env(**values):
+    """MSA_TPU_TORCH_* settings for the CLI runs inside the block."""
+    keys = {f"MSA_TPU_TORCH_{k.upper()}": str(v) for k, v in values.items()}
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(keys)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
 
 
 def run_cli(args):
@@ -142,6 +247,44 @@ def run_cli(args):
     return buf.getvalue().split("\n"), seconds
 
 
+def run_big13(counted):
+    """big13 through the CLI on the card, gated on the golden output.
+
+    Every counter in ``counted`` is set to 0 just before the run and read
+    just after; returns (seconds, launches, pairs) by kernel name.
+    """
+    for fn in counted.values():
+        fn.launches = 0
+        fn.pairs = 0
+    lines, seconds = run_cli(["--backend", "cuda", "--input", "data/mseq-big13-example.txt"])
+    launches = {name: fn.launches for name, fn in counted.items()}
+    device_pairs = {name: fn.pairs for name, fn in counted.items()}
+    if lines[1] != BIG13_HASH:
+        raise AssertionError(f"big13 hash {lines[1]} is not the golden hash")
+    if lines[2].split() != [str(p) for p in BIG13_PENALTIES]:
+        raise AssertionError("big13 penalties differ from the golden penalties")
+    if min(launches.values()) < 1 or set(device_pairs.values()) != {78}:
+        raise AssertionError(f"big13 did not run on the kernels: {launches} {device_pairs}")
+    return seconds, launches, device_pairs
+
+
+def conformance(mode, counted):
+    with open("data/host_goldens.jsonl") as f:
+        goldens = [json.loads(line) for line in f]
+    goldens.append({"dataset": "data/mseq-big13-example2.txt",
+                    "chain_hash": BIG13_2_HASH_PREFIX, "penalties": None})
+    for gold in goldens:
+        counted.pairs = 0
+        with port_env(fill_mode=mode):
+            lines, seconds = run_cli(["--backend", "cuda", "--input", gold["dataset"]])
+        if not lines[1].startswith(gold["chain_hash"]):
+            raise AssertionError(f"{gold['dataset']}: hash {lines[1]} is not the golden hash")
+        if gold["penalties"] is not None and lines[2].split() != [str(p) for p in gold["penalties"]]:
+            raise AssertionError(f"{gold['dataset']}: penalties differ from the golden")
+        phase("conformance", fill_mode=mode, dataset=gold["dataset"], hash_prefix=lines[1][:16],
+              device_pairs=counted.pairs, seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -154,6 +297,7 @@ def main() -> int:
     from msa_tpu_torch.config import TorchConfig
     from msa_tpu_torch.ops import _build
     from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import conveyor as cv
     from msa_tpu_torch.ops import walk as wk
 
     # 1. setup
@@ -169,8 +313,8 @@ def main() -> int:
           nvcc=_build.nvcc_path(), card=smi, build_seconds=build_s,
           ptxas=[line.strip() for log in logs.values() for line in log.splitlines()
                  if "registers" in line or "spill" in line])
-    _build.load("band_fill")
-    _build.load("walk")
+    for name in _build.SIGNATURES:
+        _build.load(name)
 
     # 2-3. kernels against their plain versions
     rng = np.random.default_rng(2024)
@@ -180,34 +324,21 @@ def main() -> int:
     cfg = TorchConfig()
     timed = check_case("main_geometry", main_geom, [(0, 1)], rb=cfg.rb, snap_k=cfg.snap_k)
 
-    # 4. big13 end to end on the card
+    # 4. big13 end to end on the card, banded fill
     problem = parse_file("data/mseq-big13-example.txt")
     genes = problem.genes
-    cells = sum(len(genes[i]) * len(genes[j]) for i in range(len(genes)) for j in range(i))
+    pairs = [(i, j) for i in range(1, len(genes)) for j in range(i)]
+    cells = sum(len(genes[i]) * len(genes[j]) for i, j in pairs)
+    banded = {"band_fill": bf.band_fill, "walk": wk.walk}
     torch.cuda.reset_peak_memory_stats()
     runs = []
-    for _ in range(2):
-        for counted in (bf.band_fill, wk.walk):
-            counted.launches = 0
-            counted.pairs = 0
-        lines, seconds = run_cli(
-            ["--backend", "cuda", "--input", "data/mseq-big13-example.txt"]
-        )
-        launches = {"band_fill": bf.band_fill.launches, "walk": wk.walk.launches}
-        device_pairs = {"band_fill": bf.band_fill.pairs, "walk": wk.walk.pairs}
-        if lines[1] != BIG13_HASH:
-            raise AssertionError(f"big13 hash {lines[1]} is not the golden hash")
-        if lines[2].split() != [str(p) for p in BIG13_PENALTIES]:
-            raise AssertionError("big13 penalties differ from the golden penalties")
-        if min(launches.values()) < 1 or set(device_pairs.values()) != {78}:
-            raise AssertionError(f"big13 did not run on the kernels: {launches} {device_pairs}")
-        runs.append(seconds)
-    plan = bf.plan_pairs(
-        [len(g) for g in genes],
-        [(i, j) for i in range(1, len(genes)) for j in range(i)], cfg.rb, cfg.snap_k,
-    )
-    phase("big13_e2e", hash=lines[1], penalties=len(BIG13_PENALTIES), seconds=runs,
-          gcups=[cells / t / 1e9 for t in runs], cells=cells, launches=launches,
+    with port_env(fill_mode="banded"):
+        for _ in range(2):
+            seconds, launches, device_pairs = run_big13(banded)
+            runs.append(seconds)
+    plan = bf.plan_pairs([len(g) for g in genes], pairs, cfg.rb, cfg.snap_k)
+    phase("big13_e2e", fill_mode="banded", hash=BIG13_HASH, penalties=len(BIG13_PENALTIES),
+          seconds=runs, gcups=[cells / t / 1e9 for t in runs], cells=cells, launches=launches,
           device_pairs=device_pairs, snapshot_bytes=plan.snapshot_bytes,
           peak_device_bytes=torch.cuda.max_memory_allocated(), card=smi)
 
@@ -218,9 +349,12 @@ def main() -> int:
     def fill_once():
         holder["fill"] = bf.band_fill(table, plan, problem.pxy, problem.pgap)
 
+    wplan = wk.banded_walk_plan(plan)
     fill_ms = cuda_ms(fill_once, reps=1)
-    walk_ms = cuda_ms(lambda: wk.walk(table, plan, holder["fill"], problem.pxy, problem.pgap), reps=1)
-    phase("big13_kernels", fill_ms=fill_ms, walk_ms=walk_ms,
+    walk_ms = cuda_ms(lambda: wk.walk(table, wplan, holder["fill"].rows, holder["fill"].snaps,
+                                      problem.pxy, problem.pgap), reps=1)
+    del holder["fill"]
+    phase("big13_kernels", fill_mode="banded", fill_ms=fill_ms, walk_ms=walk_ms,
           fill_gcups=cells / fill_ms / 1e6,
           rest_of_e2e_ms=min(runs) * 1e3 - fill_ms - walk_ms, card=smi)
 
@@ -228,31 +362,85 @@ def main() -> int:
     if not lines[1].startswith(MSEQ1_HASH_PREFIX):
         raise AssertionError(f"mseq1 hash {lines[1]} is not the golden hash")
     phase("mseq1_host", hash_prefix=lines[1][:16], seconds=seconds)
+    conformance("banded", bf.band_fill)
 
-    with open("data/host_goldens.jsonl") as f:
-        goldens = [json.loads(line) for line in f]
-    goldens.append({"dataset": "data/mseq-big13-example2.txt",
-                    "chain_hash": BIG13_2_HASH_PREFIX, "penalties": None})
-    for gold in goldens:
-        bf.band_fill.pairs = 0
-        lines, seconds = run_cli(["--backend", "cuda", "--input", gold["dataset"]])
-        if not lines[1].startswith(gold["chain_hash"]):
-            raise AssertionError(f"{gold['dataset']}: hash {lines[1]} is not the golden hash")
-        if gold["penalties"] is not None and lines[2].split() != [str(p) for p in gold["penalties"]]:
-            raise AssertionError(f"{gold['dataset']}: penalties differ from the golden")
-        phase("conformance", dataset=gold["dataset"], hash_prefix=lines[1][:16],
-              device_pairs=bf.band_fill.pairs, seconds=seconds)
+    # 5. the conveyor fill and the walk on its layout against their plain versions
+    skew = random_genes(rng, [2600, 16, 2100, 40, 900])
+    skew_pairs = [(i, j) for i in range(1, 5) for j in range(i)] + [(1, 0), (0, 1)]
+    check_conveyor_case("multi_tenant", skew, skew_pairs, rb=1024, snap_k=cfg.snap_k,
+                        segments=cfg.fill_segments, split_ramp=True)
+    conv_geom = random_genes(rng, [20000, 15000, 17500])
+    conveyor_timed = check_conveyor_case(
+        "main_geometry", conv_geom, [(1, 0), (2, 0), (2, 1)], rb=cfg.rb_conveyor,
+        snap_k=cfg.snap_k, segments=cfg.fill_segments)
 
-    # 5. summary
+    # 6. big13 end to end on the card, conveyor fill (the slice's main path)
+    conveyor = {"conveyor_fill": cv.conveyor_fill, "walk": wk.walk}
+    torch.cuda.reset_peak_memory_stats()
+    conv_runs = []
+    with port_env(fill_mode="conveyor"):
+        for _ in range(2):
+            seconds, conv_launches, conv_pairs = run_big13(conveyor)
+            conv_runs.append(seconds)
+    dev = torch.device("cuda")
+    wl = cv.plan_sweeps(genes, pairs, cfg.rb_conveyor, cfg.snap_k,
+                        cv.sweep_count(cfg.conveyors, len(pairs), dev))
+    phase("big13_e2e", fill_mode="conveyor", hash=BIG13_HASH, penalties=len(BIG13_PENALTIES),
+          seconds=conv_runs, gcups=[cells / t / 1e9 for t in conv_runs], cells=cells,
+          launches=conv_launches, device_pairs=conv_pairs, sweeps=len(wl.sweeps),
+          snapshot_bytes=wl.snapshot_bytes,
+          peak_device_bytes=torch.cuda.max_memory_allocated(), card=smi)
+    with port_env(fill_mode="conveyor", conveyors=26):
+        seconds26, launches26, pairs26 = run_big13(conveyor)
+    wl26 = cv.plan_sweeps(genes, pairs, cfg.rb_conveyor, cfg.snap_k, 26)
+    phase("big13_e2e", fill_mode="conveyor", conveyors=26, hash=BIG13_HASH,
+          seconds=[seconds26], gcups=[cells / seconds26 / 1e9], launches=launches26,
+          device_pairs=pairs26, pairs_per_sweep=[len(p.pair_ready) for p in wl26.sweeps],
+          snapshot_bytes=wl26.snapshot_bytes, card=smi)
+
+    def conveyor_kernels(wl):
+        """Fill (all segments) and one walk of all pairs, each alone, by events."""
+        n_seg = -(-wl.max_chunks // cfg.fill_segments)
+
+        def fill_once():
+            holder["state"] = cv.conveyor_state(wl, dev)
+            for c0 in range(0, wl.max_chunks, n_seg):
+                cv.conveyor_fill(table, wl, problem.pxy, problem.pgap, c0,
+                                 min(c0 + n_seg, wl.max_chunks), holder["state"])
+
+        fill_ms = cuda_ms(fill_once, reps=1)
+        cplan = cv.conveyor_walk_plan(wl, genes, range(wl.num_pairs))
+        walk_ms = cuda_ms(lambda: wk.walk(table, cplan, holder["state"].brow,
+                                          holder["state"].snaps, problem.pxy, problem.pgap), reps=1)
+        del holder["state"]
+        return fill_ms, walk_ms
+
+    conv_fill_ms, conv_walk_ms = conveyor_kernels(wl)
+    fill26_ms, walk26_ms = conveyor_kernels(wl26)
+    phase("big13_kernels", fill_mode="conveyor", sweeps=len(wl.sweeps), fill_ms=conv_fill_ms,
+          walk_ms=conv_walk_ms, fill_gcups=cells / conv_fill_ms / 1e6,
+          longest_sweep_steps=wl.max_chunks * cfg.snap_k,
+          rest_of_e2e_ms=min(conv_runs) * 1e3 - conv_fill_ms - conv_walk_ms,
+          sweeps26_fill_ms=fill26_ms, sweeps26_walk_ms=walk26_ms,
+          sweeps26_longest_sweep_steps=wl26.max_chunks * cfg.snap_k, card=smi)
+    phase("big13_fill_modes", banded_seconds=runs, conveyor_seconds=conv_runs,
+          conveyor26_seconds=[seconds26], banded_fill_ms=fill_ms, conveyor_fill_ms=conv_fill_ms,
+          conveyor26_fill_ms=fill26_ms, card=smi)
+    conformance("conveyor", cv.conveyor_fill)
+
+    # 7. summary
     sources = {
         "band_fill": ("msa_tpu_torch/csrc/band_fill.cu", "msa_tpu/ops/pallas_nw.py:79"),
         "walk": ("msa_tpu_torch/csrc/walk.cu", "msa_tpu/ops/pallas_walk.py:80"),
+        "conveyor_fill": ("msa_tpu_torch/csrc/conveyor_fill.cu", "msa_tpu/ops/conveyor.py:322"),
     }
+    measured = {"band_fill": (timed["fill"], launches["band_fill"]),
+                "walk": (timed["walk"], conv_launches["walk"]),
+                "conveyor_fill": (conveyor_timed, conv_launches["conveyor_fill"])}
     kernels = []
-    for name, key in (("band_fill", "fill"), ("walk", "walk")):
-        err, ms, plain_ms = timed[key]
+    for name, ((err, ms, plain_ms), count) in measured.items():
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
-                        "replaces": sources[name][1], "launches": launches[name],
+                        "replaces": sources[name][1], "launches": count,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Knobs of the PyTorch/CUDA port.
 
-Only what the banded fill + walk path reads lives here. Every field can be
+Only what the device pipeline (banded or conveyor fill, walk) reads lives
+here. Every field can be
 overridden from the environment with the prefix ``MSA_TPU_TORCH_`` (for
 example ``MSA_TPU_TORCH_RB=4095``). Unlike the JAX package, nothing is sized
 at compile time: the kernels take every size as a runtime argument, so a
@@ -34,6 +35,27 @@ class TorchConfig:
     # Torch device of the pipeline: "" picks "cuda" when a card is present.
     # "cpu" runs the pipeline through the kernels' plain versions.
     device: str = ""
+    # Fill of the device pairs: "conveyor" (ops/conveyor.py: the bands of
+    # many pairs staggered through one sweep), "banded" (ops/batch.py: one
+    # block per pair) or "auto" (models/kway.py::choose_fill_mode).
+    fill_mode: str = "auto"
+    # Conveyor band height: a multiple of snap_k (band starts and snapshots
+    # stay K-aligned), and rb_conveyor + 1 lanes must fit one block (8,192).
+    # Not the JAX package's 31744: that is one TensorCore's (R, 128) vector
+    # state; here a sweep is one thread block, and 7 * 1024 is the largest
+    # multiple of snap_k under its 8,192 lanes.
+    rb_conveyor: int = 7168
+    # Fill launches per conveyor workload (global chunk ranges); after each,
+    # one walk launch covers the pairs the fill has finished.
+    fill_segments: int = 4
+    # Host threads turning walk output into alignment strings.
+    decode_workers: int = 4
+    # Device bytes the conveyor's snapshots may take; 0 asks the card (75 %
+    # of its free memory). Over it, the workload is split in halves.
+    hbm_budget: int = 0
+    # Concurrent conveyor sweeps (one thread block each); 0 means
+    # min(device pairs, SM count).
+    conveyors: int = 0
 
     @classmethod
     def from_env(cls, **overrides) -> "TorchConfig":

@@ -24,19 +24,6 @@
 
 #include "common.cuh"
 
-__device__ __forceinline__ void write_snapshot(int* snap, const Lanes& L,
-                                               int q0, int lanes) {
-#pragma unroll
-  for (int c = 0; c < CELLS; ++c) {
-    const int q = q0 + c;
-    if (q < lanes) {
-      snap[q] = L.p1[c];
-      snap[lanes + q] = L.p1s[c];
-      snap[2 * lanes + q] = L.p2s[c];
-    }
-  }
-}
-
 __global__ void __launch_bounds__(MAX_THREADS)
 band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
                  const long long* __restrict__ params, int rb, int snap_k,
@@ -58,13 +45,13 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
   B.x = genes + pp[P_XG] * stride;
   B.y = genes + pp[P_YG] * stride;
   B.n = n;
-  B.pxy = pxy;
   B.pgap = pgap;
 
   for (int b = 0; b < nb; ++b) {
     B.i0 = b * rb;
     B.rows = min(rb, m - B.i0);
-    B.top = b ? rows_p + (long long)(b - 1) * n : nullptr;
+    B.top = b ? rows_p : nullptr;
+    B.top_base = (long long)(b - 1) * n - 1;
     const int steps = B.rows + n;
     int* snap_b = snaps + pp[P_SNAP_OFF] + (long long)b * S * 3 * lanes;
     int* harvest = (b < nb - 1) ? rows_p + (long long)b * n : nullptr;
@@ -88,7 +75,7 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
     for (int dl = 1; dl <= steps; ++dl) {
       const int ny = tid ? sh_yd[buf][tid - 1] : ycode(B, dl - 1);
       const int topv = tid ? 0 : top_value(B, dl);
-      step_cells(L, q0, dl, ny, topv, B,
+      step_cells(L, q0, ny, topv, dl, (B.i0 + dl) * pgap, pxy, pgap,
                  [&](int, int q, int cur, bool, int, int, int, int) {
                    if (q == rb && harvest && dl > rb) harvest[dl - rb - 1] = cur;
                    if (q == B.rows && dl == steps && b == nb - 1)

@@ -1,5 +1,6 @@
 // One anti-diagonal step of the banded Needleman-Wunsch recurrence, shared
-// by the fill (band_fill.cu) and the walk's segment recompute (walk.cu).
+// by the fills (band_fill.cu, conveyor_fill.cu) and the walk's segment
+// recompute (walk.cu).
 //
 // A band holds rows i0 .. i0 + rb of the DP. Lane q is row i0 + q; on local
 // anti-diagonal dl it holds cell (i0 + q, j = dl - q). Each thread owns CELLS
@@ -11,9 +12,9 @@
 // The only values that cross threads are the last lane's p1 and yd, passed to
 // the next thread through a double-buffered shared array: one __syncthreads
 // per step. The recurrence and borders are those of msa_tpu/ops/pallas_nw.py
-// (:187-202): cur = min(p2s + (x == y ? 0 : pxy), min(p1, p1s) + pgap), the
-// top lane (q == 0) from the carried boundary row, the left border
-// (q == dl, j == 0) analytic.
+// (:187-202) and msa_tpu/ops/conveyor.py (:483-495): cur = min(p2s + (x == y
+// ? 0 : pxy), min(p1, p1s) + pgap), the top lane (q == 0) from the carried
+// boundary row, the left border (one lane, j == 0) injected analytic.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,14 +25,15 @@
 #define X_SENTINEL (-1)
 #define Y_SENTINEL (-2)
 
-// Columns of the per-pair parameter table (int64), see ops/band_fill.py.
-enum { P_M, P_N, P_XG, P_YG, P_NB, P_S, P_SNAP_OFF, P_ROWS_OFF, P_MOVES_OFF, NCOL };
+// Columns of the banded fill's per-pair table (int64), see ops/band_fill.py.
+enum { P_M, P_N, P_XG, P_YG, P_NB, P_S, P_SNAP_OFF, P_ROWS_OFF, NCOL };
 
 struct Band {
   const unsigned char* x;  // gene codes of the pair's first sequence
   const unsigned char* y;  // ... and of its second
-  const int* top;          // bottom row of band b - 1 (column j at j - 1); null for band 0
-  int n, i0, rows, pxy, pgap;
+  const int* top;          // boundary rows; null for band 0 (analytic top)
+  long long top_base;      // column j of the band's top row at top[top_base + j]
+  int n, i0, rows, pgap;
 };
 
 __device__ __forceinline__ int ycode(const Band& B, int idx) {
@@ -43,10 +45,10 @@ __device__ __forceinline__ int xcode(const Band& B, int q) {
 }
 
 // dp[i0][dl]: the top lane's value on diagonal dl (>= 1). Columns past n are
-// never read by a valid cell; both versions give them NEG_FILL.
+// never read by a valid cell; every version gives them NEG_FILL.
 __device__ __forceinline__ int top_value(const Band& B, int dl) {
   if (dl > B.n) return NEG_FILL;
-  return B.top ? B.top[dl - 1] : dl * B.pgap;
+  return B.top ? B.top[B.top_base + dl] : dl * B.pgap;
 }
 
 struct Lanes {
@@ -55,13 +57,14 @@ struct Lanes {
 
 // Advance this thread's lanes by one diagonal. ``ny`` is the y code entering
 // lane q0 (from the previous thread, or the feed for thread 0); ``topv`` is
-// used only by lane q == 0. ``on_cell(c, q, cur, match, t1, t2, up, left)``
-// sees each new cell before the state moves on. After the call, p1s[0] still
-// needs the previous thread's last p1 (set by the caller after the barrier).
+// used only by lane q == 0; lane ``inj_q`` (the ramp's left border, or -1)
+// takes ``inj_v``. ``on_cell(c, q, cur, match, t1, t2, up, left)`` sees each
+// new cell before the state moves on. After the call, p1s[0] still needs the
+// previous thread's last p1 (set by the caller after the barrier).
 template <class OnCell>
-__device__ __forceinline__ void step_cells(Lanes& L, int q0, int dl, int ny,
-                                           int topv, const Band& B,
-                                           OnCell on_cell) {
+__device__ __forceinline__ void step_cells(Lanes& L, int q0, int ny, int topv,
+                                           int inj_q, int inj_v, int pxy,
+                                           int pgap, OnCell on_cell) {
 #pragma unroll
   for (int c = CELLS - 1; c > 0; --c) L.yd[c] = L.yd[c - 1];
   L.yd[0] = ny;
@@ -69,15 +72,30 @@ __device__ __forceinline__ void step_cells(Lanes& L, int q0, int dl, int ny,
   for (int c = CELLS - 1; c >= 0; --c) {
     const int q = q0 + c;
     const bool match = L.x[c] == L.yd[c];
-    const int t1 = L.p2s[c] + (match ? 0 : B.pxy);
-    const int t2 = min(L.p1[c], L.p1s[c]) + B.pgap;
+    const int t1 = L.p2s[c] + (match ? 0 : pxy);
+    const int t2 = min(L.p1[c], L.p1s[c]) + pgap;
     int cur = min(t1, t2);
     if (q == 0) cur = topv;
-    if (q == dl) cur = (B.i0 + dl) * B.pgap;
+    if (q == inj_q) cur = inj_v;
     on_cell(c, q, cur, match, t1, t2, L.p1s[c], L.p1[c]);
     L.p2s[c] = L.p1s[c];
     L.p1[c] = cur;
     if (c + 1 < CELLS) L.p1s[c + 1] = cur;
+  }
+}
+
+// The state (p1, p1s, p2s) of this thread's lanes below ``lanes``: one
+// snapshot, the three planes of ``lanes`` values each.
+__device__ __forceinline__ void write_snapshot(int* snap, const Lanes& L,
+                                               int q0, int lanes) {
+#pragma unroll
+  for (int c = 0; c < CELLS; ++c) {
+    const int q = q0 + c;
+    if (q < lanes) {
+      snap[q] = L.p1[c];
+      snap[lanes + q] = L.p1s[c];
+      snap[2 * lanes + q] = L.p2s[c];
+    }
   }
 }
 

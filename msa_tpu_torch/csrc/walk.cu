@@ -3,8 +3,17 @@
 // Replaces msa_tpu/ops/pallas_walk.py::_walk_call (kernel :115,
 // pallas_call :559). From (m, n) it walks back to the first border cell
 // (i == 0 or j == 0), emitting move codes 0 match, 1 substitution, 2 up,
-// 3 left with the tie-break match -> diagonal -> up -> left
-// (pallas_walk.py:381-389 with swap = 0), packed 16 to an int32 word.
+// 3 left with the tie-break match -> diagonal -> up -> left, packed 16 to an
+// int32 word. A pair the conveyor planner transposed has swap = 1 and prefers
+// left over up on a tie, so that its moves, swapped back, are the original
+// orientation's (pallas_walk.py:125-139, :379-389).
+//
+// Both fill layouts reach the walk through one band table: band b of a pair
+// is row band0 + b, whose snapshot segment s is at snaps[snap_base + s * 3 *
+// (rb + 1)] and whose top row has column j at rows[row_base + j] (band 0's
+// top is analytic). The banded fill's per-pair layout and the conveyor's
+// global-chunk layout (a band's segment s is the sweep's chunk start / K + s)
+// differ only in these two numbers (ops/walk.py).
 //
 // Per segment: from the current cell (i, j) derive the band b, the segment
 // s = (dl - 1) / snap_k and the window base w0 = align128_down(q - snap_k)
@@ -31,31 +40,35 @@
 
 #include "common.cuh"
 
+// Columns of the walk's per-pair table and band table (int64), ops/walk.py.
+enum { W_M, W_N, W_XG, W_YG, W_BAND0, W_MOVES_OFF, W_SWAP, WCOL };
+enum { B_SNAP, B_ROW, BCOL };
+
 __global__ void __launch_bounds__(MAX_THREADS)
 walk_kernel(const unsigned char* __restrict__ genes, long long stride,
-            const long long* __restrict__ params, int rb, int snap_k, int win,
+            const long long* __restrict__ params,
+            const long long* __restrict__ bands, int rb, int snap_k, int win,
             int pxy, int pgap, const int* __restrict__ rows,
             const int* __restrict__ snaps, unsigned char* __restrict__ dirs,
             int* __restrict__ moves, int* __restrict__ counts) {
   __shared__ int sh_p1[2][MAX_THREADS];
   __shared__ int sh_yd[2][MAX_THREADS];
   __shared__ int sh_i, sh_j;
-  const long long* pp = params + (long long)blockIdx.x * NCOL;
-  const int m = (int)pp[P_M];
-  const int n = (int)pp[P_N];
-  const int S = (int)pp[P_S];
+  const long long* pp = params + (long long)blockIdx.x * WCOL;
+  const int m = (int)pp[W_M];
+  const int n = (int)pp[W_N];
+  const int swap = (int)pp[W_SWAP];
+  const long long* band_p = bands + pp[W_BAND0] * BCOL;
   const int lanes = rb + 1;
   const int tid = threadIdx.x;
   const int width = blockDim.x * CELLS;  // bytes per scratch row
-  const int* rows_p = rows + pp[P_ROWS_OFF];
-  int* moves_p = moves + pp[P_MOVES_OFF];
+  int* moves_p = moves + pp[W_MOVES_OFF];
   unsigned char* dir_p = dirs + (long long)blockIdx.x * snap_k * width;
 
   Band B;
-  B.x = genes + pp[P_XG] * stride;
-  B.y = genes + pp[P_YG] * stride;
+  B.x = genes + pp[W_XG] * stride;
+  B.y = genes + pp[W_YG] * stride;
   B.n = n;
-  B.pxy = pxy;
   B.pgap = pgap;
 
   unsigned int acc = 0;  // thread 0: moves not yet flushed to a word
@@ -73,7 +86,8 @@ walk_kernel(const unsigned char* __restrict__ genes, long long stride,
     const int b = (i - 1) / rb;
     B.i0 = b * rb;
     B.rows = min(rb, m - B.i0);
-    B.top = b ? rows_p + (long long)(b - 1) * n : nullptr;
+    B.top = b ? rows : nullptr;
+    B.top_base = band_p[b * BCOL + B_ROW];
     const int q = i - B.i0;
     const int dl = q + j;
     const int dl0 = (dl - 1) / snap_k * snap_k;
@@ -82,7 +96,7 @@ walk_kernel(const unsigned char* __restrict__ genes, long long stride,
     w0 = min(w0, lanes - win);
     const int steps = dl - dl0;  // the entry cell lies on the last of them
     const int* snap =
-        snaps + pp[P_SNAP_OFF] + ((long long)b * S + dl0 / snap_k) * 3 * lanes;
+        snaps + band_p[b * BCOL + B_SNAP] + (long long)(dl0 / snap_k) * 3 * lanes;
 
     Lanes L;
     const int lane0 = tid * CELLS;
@@ -105,11 +119,11 @@ walk_kernel(const unsigned char* __restrict__ genes, long long stride,
       const int ny = tid ? sh_yd[buf][tid - 1] : ycode(B, d - w0 - 1);
       const int topv = (tid == 0 && w0 == 0) ? top_value(B, d) : 0;
       unsigned long long packed = 0;
-      step_cells(L, w0 + lane0, d, ny, topv, B,
+      step_cells(L, w0 + lane0, ny, topv, d, (B.i0 + d) * pgap, pxy, pgap,
                  [&](int c, int, int, bool match, int t1, int t2, int up,
                      int left) {
                    const int mv =
-                       match ? 0 : (t1 <= t2 ? 1 : (up <= left ? 2 : 3));
+                       match ? 0 : (t1 <= t2 ? 1 : (up + swap <= left ? 2 : 3));
                    packed |= (unsigned long long)mv << (8 * c);
                  });
       *reinterpret_cast<unsigned long long*>(dir_p + (long long)(t - 1) * width +
@@ -150,15 +164,16 @@ walk_kernel(const unsigned char* __restrict__ genes, long long stride,
 // Returns cudaGetLastError() after the launch. ``dirs`` is scratch of
 // num_pairs * snap_k * threads * CELLS bytes, threads = threads_for(win).
 extern "C" int walk(const void* genes, long long stride, const void* params,
-                    int num_pairs, int rb, int snap_k, int pxy, int pgap,
+                    const void* bands, int num_pairs, int rb, int snap_k,
+                    int pxy, int pgap,
                     const void* rows, const void* snaps, void* dirs,
                     void* moves, void* counts, void* stream) {
   const int win = min(snap_k + 128, rb + 1);
   const int threads = threads_for(win);
   if (threads == 0 || num_pairs <= 0 || snap_k <= 0) return cudaErrorInvalidValue;
   walk_kernel<<<num_pairs, threads, 0, (cudaStream_t)stream>>>(
-      (const unsigned char*)genes, stride, (const long long*)params, rb,
-      snap_k, win, pxy, pgap, (const int*)rows, (const int*)snaps,
+      (const unsigned char*)genes, stride, (const long long*)params,
+      (const long long*)bands, rb, snap_k, win, pxy, pgap, (const int*)rows, (const int*)snaps,
       (unsigned char*)dirs, (int*)moves, (int*)counts);
   return (int)cudaGetLastError();
 }

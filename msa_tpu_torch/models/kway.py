@@ -20,6 +20,26 @@ from msa_tpu.utils.tasks import pair_task_list
 from msa_tpu_torch.config import TorchConfig
 from msa_tpu_torch.models.pairwise import PairResult, PairwiseAligner
 
+FILL_MODES = ("auto", "banded", "conveyor")
+# Device pairs from which fill_mode "auto" takes the conveyor
+# (msa_tpu/models/kway.py:59).
+_CONVEYOR_MIN_PAIRS = 3
+
+
+def choose_fill_mode(config: TorchConfig, num_device_pairs: int) -> str:
+    """The fill of the device pairs: ``config.fill_mode`` unless "auto".
+
+    "auto" keeps the JAX package's rule (msa_tpu/models/kway.py:28-59):
+    the conveyor from _CONVEYOR_MIN_PAIRS device pairs, the banded fill
+    below. On an H100 the conveyor ran big13 no slower than the banded fill
+    (1.73-1.76 s against 1.82-1.85 s, five alternating runs each, PERF.md).
+    """
+    if config.fill_mode not in FILL_MODES:
+        raise ValueError(f"unknown fill_mode {config.fill_mode!r}; expected one of {FILL_MODES}")
+    if config.fill_mode != "auto":
+        return config.fill_mode
+    return "conveyor" if num_device_pairs >= _CONVEYOR_MIN_PAIRS else "banded"
+
 
 @dataclasses.dataclass
 class KWayResult:
@@ -53,7 +73,6 @@ class KWayAligner:
             remaining = [t for t in tasks if t.task_id not in results]
             device_tasks = [t for t in remaining if pw.on_device(genes[t.i], genes[t.j])]
             if device_tasks:
-                from msa_tpu_torch.ops.batch import align_pairs_batched
 
                 def on_result(idx, triple):
                     t = device_tasks[idx]
@@ -64,11 +83,21 @@ class KWayAligner:
                     if journal is not None:
                         journal.record(t.task_id, penalty, results[t.task_id].problem_hash)
 
-                align_pairs_batched(
-                    genes, [(t.i, t.j) for t in device_tasks], pw.pxy, pw.pgap,
-                    device=pw.device, rb=pw.config.rb, snap_k=pw.config.snap_k,
-                    on_result=on_result,
-                )
+                pairs = [(t.i, t.j) for t in device_tasks]
+                if choose_fill_mode(pw.config, len(pairs)) == "conveyor":
+                    from msa_tpu_torch.ops.conveyor import align_pairs_conveyor
+
+                    align_pairs_conveyor(
+                        genes, pairs, pw.pxy, pw.pgap, device=pw.device,
+                        config=pw.config, on_result=on_result,
+                    )
+                else:
+                    from msa_tpu_torch.ops.batch import align_pairs_batched
+
+                    align_pairs_batched(
+                        genes, pairs, pw.pxy, pw.pgap, device=pw.device,
+                        rb=pw.config.rb, snap_k=pw.config.snap_k, on_result=on_result,
+                    )
             for t in tasks:
                 if t.task_id not in results:
                     results[t.task_id] = pw.do_task(t.task_id, genes[t.i], genes[t.j])

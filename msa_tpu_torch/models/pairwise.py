@@ -4,7 +4,7 @@ Port of ``msa_tpu/models/pairwise.py``. Backends:
 
 - ``numpy``  the host oracle (``msa_tpu.ops.reference``);
 - ``native`` the C++ host kernel (``msa_tpu.native``);
-- ``cuda``   the device pipeline (banded fill + walk kernels) on a card;
+- ``cuda``   the device pipeline (conveyor or banded fill, walk) on a card;
              raises when there is none;
 - ``auto``   the device pipeline on ``config.device`` (or a card, when one
              is present), else the native host kernel.

@@ -35,9 +35,13 @@ SIGNATURES = {
     # band_fill(genes, stride, params, num_pairs, rb, snap_k, pxy, pgap,
     #           score, rows, snaps, stream)
     "band_fill": [P, LL, P, I, I, I, I, I, P, P, P, P],
-    # walk(genes, stride, params, num_pairs, rb, snap_k, pxy, pgap,
+    # walk(genes, stride, params, bands, num_pairs, rb, snap_k, pxy, pgap,
     #      rows, snaps, dirs, moves, counts, stream)
-    "walk": [P, LL, P, I, I, I, I, I, P, P, P, P, P, P],
+    "walk": [P, LL, P, P, I, I, I, I, I, P, P, P, P, P, P],
+    # conveyor_fill(genes, stride, sweeps, bands, events, num_sweeps, rb,
+    #               snap_k, ymax, pxy, pgap, c0, c1, score, brow, snaps,
+    #               carry, stream)
+    "conveyor_fill": [P, LL, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P],
 }
 
 _LOCK = threading.Lock()

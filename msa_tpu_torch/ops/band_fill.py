@@ -37,20 +37,19 @@ X_SENTINEL = -1
 Y_SENTINEL = -2
 
 # Columns of the parameter table (csrc/common.cuh keeps the same order).
-P_M, P_N, P_XG, P_YG, P_NB, P_S, P_SNAP_OFF, P_ROWS_OFF, P_MOVES_OFF = range(9)
-NCOL = 9
+P_M, P_N, P_XG, P_YG, P_NB, P_S, P_SNAP_OFF, P_ROWS_OFF = range(8)
+NCOL = 8
 
 
 @dataclasses.dataclass
 class Plan:
-    """Geometry and buffer offsets of every pair of one fill + walk call."""
+    """Geometry and buffer offsets of every pair of one fill call."""
 
     params: np.ndarray  # (P, NCOL) int64
     rb: int
     snap_k: int
     rows_len: int
     snaps_len: int
-    moves_len: int
 
     @property
     def num_pairs(self) -> int:
@@ -80,18 +79,17 @@ def plan_pairs(
     if snap_k < 1:
         raise ValueError(f"snap_k must be positive, got {snap_k}")
     params = np.zeros((len(pairs), NCOL), np.int64)
-    snap_off = rows_off = moves_off = 0
+    snap_off = rows_off = 0
     for p, (xg, yg) in enumerate(pairs):
         m, n = int(lengths[xg]), int(lengths[yg])
         if m < 1 or n < 1:
             raise ValueError(f"pair {p} has an empty sequence")
         nb = -(-m // rb)
         s = (min(rb, m) + n - 1) // snap_k + 1
-        params[p] = [m, n, xg, yg, nb, s, snap_off, rows_off, moves_off]
+        params[p] = [m, n, xg, yg, nb, s, snap_off, rows_off]
         snap_off += nb * s * 3 * (rb + 1)
         rows_off += (nb - 1) * n
-        moves_off += -(-(m + n) // 16)
-    return Plan(params, rb, snap_k, rows_off, snap_off, moves_off)
+    return Plan(params, rb, snap_k, rows_off, snap_off)
 
 
 def gene_table(genes: Sequence[str]) -> np.ndarray:
@@ -101,6 +99,11 @@ def gene_table(genes: Sequence[str]) -> np.ndarray:
     for g, seq in enumerate(genes):
         table[g, : len(seq)] = np.frombuffer(seq.encode("latin-1"), np.uint8)
     return table
+
+
+def to_card(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host table on the card, copied without waiting for the stream."""
+    return torch.from_numpy(array).pin_memory().to(device, non_blocking=True)
 
 
 def band_fill(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillState:
@@ -118,7 +121,7 @@ def band_fill(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillState
     lib = _build.load("band_fill")
     table = table.contiguous()
     dev = table.device
-    params = torch.from_numpy(plan.params).to(dev)
+    params = to_card(plan.params, dev)
     out = FillState(
         score=torch.zeros(plan.num_pairs, dtype=torch.int32, device=dev),
         rows=torch.zeros(max(plan.rows_len, 1), dtype=torch.int32, device=dev),
@@ -151,7 +154,7 @@ def band_fill_ref(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillS
     snaps = torch.zeros(plan.snaps_len, **i32)
     neg = torch.full((1,), NEG_FILL, **i32)
     for p, prm in enumerate(plan.params.tolist()):
-        m, n, xg, yg, nb, S, snap_off, rows_off, _ = prm
+        m, n, xg, yg, nb, S, snap_off, rows_off = prm
         x = table[xg, :m].to(torch.int32)
         y = table[yg, :n].to(torch.int32)
         for b in range(nb):

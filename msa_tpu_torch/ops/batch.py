@@ -18,13 +18,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from msa_tpu.utils.alignment import moves_to_alignment
-from msa_tpu_torch.ops.band_fill import (
-    P_MOVES_OFF,
-    band_fill,
-    gene_table,
-    plan_pairs,
-)
-from msa_tpu_torch.ops.walk import decode_moves, walk
+from msa_tpu_torch.ops.band_fill import band_fill, gene_table, plan_pairs
+from msa_tpu_torch.ops.walk import banded_walk_plan, pair_moves, walk
 
 
 def align_pairs_batched(
@@ -45,18 +40,17 @@ def align_pairs_batched(
     if not pairs:
         return []
     plan = plan_pairs([len(g) for g in genes], pairs, rb, snap_k)
+    wplan = banded_walk_plan(plan)
     table = torch.from_numpy(gene_table(genes)).to(device)
     fill = band_fill(table, plan, pxy, pgap)
-    words_d, counts_d = walk(table, plan, fill, pxy, pgap)
+    words_d, counts_d = walk(table, wplan, fill.rows, fill.snaps, pxy, pgap)
     scores = fill.score.cpu().numpy()
     words = words_d.cpu().numpy()
     counts = counts_d.cpu().numpy()
 
     out: List[Tuple[int, str, str]] = []
     for idx, (xg, yg) in enumerate(pairs):
-        off = int(plan.params[idx, P_MOVES_OFF])
-        cnt = int(counts[idx])
-        moves = decode_moves(words[None, off : off + -(-cnt // 16)], counts[idx : idx + 1])
+        moves = pair_moves(words, counts, wplan, idx)
         a1, a2 = moves_to_alignment(genes[xg], genes[yg], moves)
         out.append((int(scores[idx]), a1, a2))
         if on_result is not None:

@@ -7,9 +7,17 @@ the fill's snapshot (``band_fill``), and follows the moves until it leaves
 the segment or the band. It stops at the first cell with i == 0 or j == 0.
 
 Move codes are 0 match, 1 substitution, 2 up, 3 left, with the tie-break
-match -> diagonal -> up -> left; move c of a pair rides bits 2*(c % 16) of
-word c // 16 of the pair's slice of ``moves`` (at params column
-P_MOVES_OFF), and ``counts[p]`` says how many moves the pair has.
+match -> diagonal -> up -> left (left before up for a pair with ``swap`` = 1,
+which the conveyor planner transposed); move c of a pair rides bits
+2*(c % 16) of word c // 16 of the pair's slice of ``moves`` (at column
+W_MOVES_OFF), and ``counts[p]`` says how many moves the pair has.
+
+A ``WalkPlan`` says where each pair's bands lie in the fill's output: band b
+of pair p is row ``pairs[p, W_BAND0] + b`` of ``bands``, whose snapshot
+segment s starts at ``snaps[snap_base + s * 3 * (rb + 1)]`` and whose top
+row holds column j at ``rows[row_base + j]`` (band 0's top is analytic).
+``banded_walk_plan`` lays out the banded fill's output this way, and
+``ops/conveyor.py`` the conveyor's, so one walk serves both fills.
 
 ``walk`` launches ``csrc/walk.cu`` for CUDA tensors and runs ``walk_ref``
 for CPU tensors; any other device raises.
@@ -18,22 +26,65 @@ for CPU tensors; any other device raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import dataclasses
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from msa_tpu_torch.config import CELLS_PER_THREAD, MAX_RB
-from msa_tpu_torch.ops.band_fill import (
-    NEG_FILL,
-    X_SENTINEL,
-    Y_SENTINEL,
-    FillState,
-    Plan,
-)
+from msa_tpu_torch.ops.band_fill import NEG_FILL, X_SENTINEL, Y_SENTINEL, Plan, to_card
+
+# Columns of the per-pair table and of the band table (csrc/walk.cu keeps
+# the same order).
+W_M, W_N, W_XG, W_YG, W_BAND0, W_MOVES_OFF, W_SWAP = range(7)
+WCOL = 7
+B_SNAP, B_ROW = range(2)
 
 
-def window(plan: Plan) -> int:
+@dataclasses.dataclass
+class WalkPlan:
+    """Per-pair walk table, band table and move-buffer size of one walk call."""
+
+    pairs: np.ndarray  # (P, WCOL) int64
+    bands: np.ndarray  # (total bands, 2) int64: snap_base, row_base
+    rb: int
+    snap_k: int
+    moves_len: int
+
+    @property
+    def num_pairs(self) -> int:
+        return int(self.pairs.shape[0])
+
+
+def make_walk_plan(pairs: Sequence, rb: int, snap_k: int) -> WalkPlan:
+    """``pairs``: (m, n, x gene, y gene, swap, [(snap_base, row_base), ...])."""
+    rows, bands = [], []
+    moves_off = 0
+    for m, n, xg, yg, swap, band_rows in pairs:
+        rows.append([m, n, xg, yg, len(bands), moves_off, swap])
+        bands.extend(band_rows)
+        moves_off += -(-(m + n) // 16)
+    return WalkPlan(
+        np.array(rows, np.int64).reshape(-1, WCOL),
+        np.array(bands, np.int64).reshape(-1, 2), rb, snap_k, moves_off,
+    )
+
+
+def banded_walk_plan(plan: Plan) -> WalkPlan:
+    """The walk's view of a banded fill (``ops/band_fill.py``) output."""
+    lanes = plan.rb + 1
+    pairs = []
+    for m, n, xg, yg, nb, S, snap_off, rows_off in plan.params.tolist():
+        bands = [
+            (snap_off + b * S * 3 * lanes, rows_off + (b - 1) * n - 1 if b else 0)
+            for b in range(nb)
+        ]
+        pairs.append((m, n, xg, yg, 0, bands))
+    return make_walk_plan(pairs, plan.rb, plan.snap_k)
+
+
+def window(plan) -> int:
     """Lanes the walk recomputes per segment."""
     return min(plan.snap_k + 128, plan.rb + 1)
 
@@ -51,11 +102,12 @@ def segment(i: int, j: int, rb: int, snap_k: int, lanes: int, win: int):
 
 
 def walk(
-    table: torch.Tensor, plan: Plan, fill: FillState, pxy: int, pgap: int
+    table: torch.Tensor, plan: WalkPlan, rows: torch.Tensor,
+    snaps: torch.Tensor, pxy: int, pgap: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trace every pair of ``plan``; returns (moves words, counts)."""
     if table.device.type == "cpu":
-        return walk_ref(table, plan, fill, pxy, pgap)
+        return walk_ref(table, plan, rows, snaps, pxy, pgap)
     if table.device.type != "cuda":
         raise ValueError(f"walk runs on cuda or cpu, not {table.device}")
     if window(plan) > MAX_RB + 1:
@@ -65,10 +117,11 @@ def walk(
     lib = _build.load("walk")
     dev = table.device
     table = table.contiguous()
-    for t in (fill.rows, fill.snaps):
+    for t in (rows, snaps):
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("fill state must be contiguous int32 on the table's device")
-    params = torch.from_numpy(plan.params).to(dev)
+    params = to_card(plan.pairs, dev)
+    bands = to_card(plan.bands, dev)
     threads = -(-window(plan) // CELLS_PER_THREAD)
     threads = -(-threads // 32) * 32
     dirs = torch.empty(
@@ -79,9 +132,9 @@ def walk(
     counts = torch.zeros(plan.num_pairs, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.walk(
-        table.data_ptr(), table.stride(0), params.data_ptr(), plan.num_pairs,
-        plan.rb, plan.snap_k, pxy, pgap, fill.rows.data_ptr(),
-        fill.snaps.data_ptr(), dirs.data_ptr(), moves.data_ptr(),
+        table.data_ptr(), table.stride(0), params.data_ptr(), bands.data_ptr(),
+        plan.num_pairs, plan.rb, plan.snap_k, pxy, pgap, rows.data_ptr(),
+        snaps.data_ptr(), dirs.data_ptr(), moves.data_ptr(),
         counts.data_ptr(), ctypes.c_void_p(stream),
     )
     _build.check("walk", err)
@@ -105,7 +158,8 @@ def pack_moves(moves: np.ndarray) -> np.ndarray:
 
 
 def walk_ref(
-    table: torch.Tensor, plan: Plan, fill: FillState, pxy: int, pgap: int
+    table: torch.Tensor, plan: WalkPlan, rows: torch.Tensor,
+    snaps: torch.Tensor, pxy: int, pgap: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch walk: one Python step per diagonal, then a host walk."""
     dev = table.device
@@ -122,8 +176,7 @@ def walk_ref(
         ok = (idx >= 0) & (idx < seq.numel())
         return torch.where(ok, seq[idx.clamp(0, seq.numel() - 1)], sentinel)
 
-    for p, prm in enumerate(plan.params.tolist()):
-        m, n, xg, yg, _, S, snap_off, rows_off, moves_off = prm
+    for p, (m, n, xg, yg, band0, moves_off, swap) in enumerate(plan.pairs.tolist()):
         x = table[xg, :m].to(torch.int32)
         y = table[yg, :n].to(torch.int32)
         moves = []
@@ -131,10 +184,11 @@ def walk_ref(
         while i > 0 and j > 0:
             b, i0, q, dl0, w0, steps = segment(i, j, rb, K, lanes, win)
             nrows = min(rb, m - i0)
-            base = snap_off + ((b * S + dl0 // K) * 3) * lanes + w0
-            p1 = fill.snaps[base : base + win]
-            p1s = fill.snaps[base + lanes : base + lanes + win]
-            p2s = fill.snaps[base + 2 * lanes : base + 2 * lanes + win]
+            snap_base, row_base = plan.bands[band0 + b].tolist()
+            base = snap_base + (dl0 // K) * 3 * lanes + w0
+            p1 = snaps[base : base + win]
+            p1s = snaps[base + lanes : base + lanes + win]
+            p2s = snaps[base + 2 * lanes : base + 2 * lanes + win]
             qq = w0 + lane
             xv = torch.where(
                 (qq >= 1) & (qq <= nrows),
@@ -149,8 +203,7 @@ def walk_ref(
                 if b == 0:
                     top[1 : jj + 1] = torch.arange(1, jj + 1, **i32) * pgap
                 else:
-                    row = fill.rows[rows_off + (b - 1) * n :]
-                    top[1 : jj + 1] = row[:jj]
+                    top[1 : jj + 1] = rows[row_base + 1 : row_base + jj + 1]
             yfeed = codes(y, dl0 + torch.arange(steps, **i32) - w0, Y_SENTINEL)
             dirs = torch.empty((steps, win), dtype=torch.int8, device=dev)
             for t in range(1, steps + 1):
@@ -166,7 +219,7 @@ def walk_ref(
                     cur[d - w0] = (i0 + d) * pgap
                 dirs[t - 1] = torch.where(
                     match, 0,
-                    torch.where(t1 <= t2, 1, torch.where(p1s <= p1, 2, 3)),
+                    torch.where(t1 <= t2, 1, torch.where(p1s + swap <= p1, 2, 3)),
                 ).to(torch.int8)
                 p2s, p1s, p1 = p1s, torch.cat([neg, cur[:-1]]), cur
             dh = dirs.cpu().numpy()
@@ -184,6 +237,13 @@ def walk_ref(
         torch.from_numpy(moves_out).to(dev),
         torch.from_numpy(counts).to(dev),
     )
+
+
+def pair_moves(words: np.ndarray, counts: np.ndarray, plan: WalkPlan, p: int) -> np.ndarray:
+    """Pair p's backward move stream from a walk's fetched output."""
+    off = int(plan.pairs[p, W_MOVES_OFF])
+    cnt = int(counts[p])
+    return decode_moves(words[None, off : off + -(-cnt // 16)], counts[p : p + 1])
 
 
 def decode_moves(words: np.ndarray, counts: np.ndarray) -> np.ndarray:

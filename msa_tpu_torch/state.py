@@ -1,10 +1,12 @@
-"""The state that crosses from the JAX package to the port: the fill's output.
+"""The state that crosses from the JAX package to the port: the fills' output.
 
-There are no learned weights. What one implementation hands the other is the
-banded fill's result (score, band boundary rows, wavefront snapshots), and
+There are no learned weights. What one implementation hands the other is a
+fill's result (scores, band boundary rows, wavefront snapshots), and
 ``fill_state_from_jax`` maps the arrays of
-``msa_tpu/ops/pallas_nw.py::_band_sweep_call`` into the port's layout
-(``ops/band_fill.py``) for one pair, so that the JAX fill can feed the
+``msa_tpu/ops/pallas_nw.py::_band_sweep_call`` into the port's banded layout
+(``ops/band_fill.py``) for one pair, ``conveyor_state_from_jax`` those of
+``msa_tpu/ops/conveyor.py``'s fill into the port's conveyor layout
+(``ops/conveyor.py``) for one sweep, so that either JAX fill can feed the
 port's walk.
 
 JAX layouts read here:
@@ -12,7 +14,11 @@ JAX layouts read here:
   index j - 1;
 - ``snaps`` (num_bands * s_max, 3, 128, R): snapshot s of band b at
   [b * s_max + s], each of the three (128, R) planes read row-major in
-  flat-q order (pallas_nw.py:160-174), v_len = 128 * R lanes.
+  flat-q order (pallas_nw.py:160-174), v_len = 128 * R lanes;
+- conveyor ``snaps`` (n_chunks, 3, 128, R): chunk c in flat-q order, written
+  as ``cur.T`` like the banded ones (conveyor.py:532-534);
+- conveyor ``brow`` (n_slots, 1, ymax): column j of a slot at index j;
+- conveyor ``scores`` (pairs, 1), by conveyor slot.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from msa_tpu_torch.ops.band_fill import FillState, Plan, plan_pairs
+from msa_tpu_torch.ops.conveyor import ConveyorPlan, ConveyorState
 
 
 def fill_state_from_jax(score, rows, snaps, *, m, n, rb, v_len, snap_k) -> FillState:
@@ -52,13 +59,13 @@ def fill_state_from_jax(score, rows, snaps, *, m, n, rb, v_len, snap_k) -> FillS
 
 def pair_rows(fill: FillState, plan: Plan, p: int) -> torch.Tensor:
     """(nb - 1, n) bottom rows of pair p."""
-    m, n, _, _, nb, _, _, off, _ = plan.params[p].tolist()
+    m, n, _, _, nb, _, _, off = plan.params[p].tolist()
     return fill.rows[off : off + (nb - 1) * n].reshape(nb - 1, n)
 
 
 def pair_snaps(fill: FillState, plan: Plan, p: int) -> torch.Tensor:
     """(nb, S, 3, rb + 1) snapshots of pair p."""
-    _, _, _, _, nb, S, off, _, _ = plan.params[p].tolist()
+    _, _, _, _, nb, S, off, _ = plan.params[p].tolist()
     lanes = plan.rb + 1
     return fill.snaps[off : off + nb * S * 3 * lanes].reshape(nb, S, 3, lanes)
 
@@ -72,7 +79,7 @@ def valid_snapshot_cells(plan: Plan, p: int) -> np.ndarray:
     lies in the band (row 0 .. rows_b) and in the matrix (column 0 .. n),
     and the fill wrote the snapshot. Other entries carry arbitrary values.
     """
-    m, n, _, _, nb, S, _, _, _ = plan.params[p].tolist()
+    m, n, _, _, nb, S, _, _ = plan.params[p].tolist()
     rb, K = plan.rb, plan.snap_k
     q = np.arange(rb + 1)[None, :]
     s = np.arange(S)[:, None]
@@ -87,4 +94,65 @@ def valid_snapshot_cells(plan: Plan, p: int) -> np.ndarray:
             out[b, :, plane] = (
                 written & (row >= 0) & (row <= nrows) & (col >= 0) & (col <= n)
             )
+    return out
+
+
+def conveyor_state_from_jax(scores, snaps, brow, *, plan: ConveyorPlan, rb, v_len) -> ConveyorState:
+    """One JAX conveyor sweep's output in the port's layout (one sweep).
+
+    The JAX arrays are padded (chunks to its compile granularity, lanes to
+    v_len, brow rows to its ymax plus a trash slot); the port keeps the
+    plan's n_chunks, rb + 1 lanes, n_slots and ymax of them.
+    """
+    lanes = rb + 1
+    snaps = np.asarray(snaps)
+    flat = snaps.reshape(snaps.shape[0], 3, v_len)[: plan.n_chunks, :, :lanes]
+    rows = np.asarray(brow)[: plan.n_slots, 0, : plan.ymax]
+    return ConveyorState(
+        score=torch.from_numpy(
+            np.asarray(scores).reshape(-1)[: len(plan.pair_ready)].astype(np.int32)
+        ),
+        brow=torch.from_numpy(np.ascontiguousarray(rows).reshape(-1)),
+        snaps=torch.from_numpy(np.ascontiguousarray(flat).reshape(-1)),
+        carry=torch.zeros(5 * lanes, dtype=torch.int32),
+    )
+
+
+def valid_conveyor_cells(plan: ConveyorPlan) -> np.ndarray:
+    """(n_chunks, 3, rb + 1) bool: the snapshot entries that are DP cells.
+
+    Chunk c is global step t = c * K. For each band with start <= t, local
+    dl = t - start; plane 0 (p1) at lane q is its cell (q, dl - q), planes 1
+    and 2 (p1s, p2s) the cells (q - 1, dl - q + 1) and (q - 1, dl - q). An
+    entry is valid when the cell lies in the band (row 0 .. its rows) and in
+    the matrix (column 0 .. n). The bands' regions are disjoint (the
+    planner's stagger >= previous n + K), so each entry belongs to at most
+    one band.
+    """
+    rb, K = plan.rb, plan.snap_k
+    q = np.arange(rb + 1)[None, :]
+    out = np.zeros((plan.n_chunks, 3, rb + 1), bool)
+    for bp in plan.bands:
+        rows = bp.q_last if bp.is_last else rb
+        c0 = -(-bp.start // K)
+        c1 = min(plan.n_chunks, (bp.start + rb + bp.n) // K + 1)
+        dl = (np.arange(c0, c1) * K - bp.start)[:, None]
+        for plane, (row, col) in enumerate(
+            [(q, dl - q), (q - 1, dl - q + 1), (q - 1, dl - q)]
+        ):
+            out[c0:c1, plane] |= (row >= 0) & (row <= rows) & (col >= 0) & (col <= bp.n)
+    return out
+
+
+def valid_brow_cells(plan: ConveyorPlan) -> np.ndarray:
+    """(n_slots, ymax) bool: brow entries that are DP cells.
+
+    A band that is not its pair's last has a bottom row dp[i0 + rb][j],
+    j = 0 .. n, in its brow_out slot; the other slots and columns carry
+    arbitrary values.
+    """
+    out = np.zeros((plan.n_slots, plan.ymax), bool)
+    for bp in plan.bands:
+        if not bp.is_last:
+            out[bp.brow_out, : bp.n + 1] = True
     return out

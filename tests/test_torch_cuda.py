@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from msa_tpu.ops.reference import nw_align_numpy
+from msa_tpu_torch.config import TorchConfig
 from msa_tpu_torch.ops import band_fill as bf
+from msa_tpu_torch.ops import conveyor as cv
 from msa_tpu_torch.ops import walk as wk
 from msa_tpu_torch.ops.batch import align_pairs_batched
 
@@ -43,8 +45,9 @@ def test_kernels_equal_plain_versions(card, rb, snap_k):
     assert torch.equal(fill.score, ref.score)
     assert torch.equal(fill.rows, ref.rows)
     assert torch.equal(fill.snaps, ref.snaps)
-    words, counts = wk.walk(table, plan, fill, 3, 2)
-    rwords, rcounts = wk.walk_ref(table, plan, fill, 3, 2)
+    wplan = wk.banded_walk_plan(plan)
+    words, counts = wk.walk(table, wplan, fill.rows, fill.snaps, 3, 2)
+    rwords, rcounts = wk.walk_ref(table, wplan, fill.rows, fill.snaps, 3, 2)
     assert torch.equal(words, rwords) and torch.equal(counts, rcounts)
 
 
@@ -61,3 +64,38 @@ def test_fill_rejects_too_wide_band(card):
     table = torch.zeros((2, 10), dtype=torch.uint8, device=card)
     with pytest.raises(ValueError, match="rb <="):
         bf.band_fill(table, plan, 3, 2)
+
+
+@pytest.mark.parametrize("rb,snap_k,conveyors,segments", [(1024, 1024, 1, 4), (256, 128, 3, 5)])
+def test_conveyor_kernel_equals_plain_version(card, rb, snap_k, conveyors, segments):
+    genes = _genes(rb + conveyors, [2600, 16, 2100, 40, 900])
+    pairs = [(i, j) for i in range(1, 5) for j in range(i)] + [(1, 0), (0, 1)]
+    wl = cv.plan_sweeps(genes, pairs, rb, snap_k, conveyors)
+    table = torch.from_numpy(bf.gene_table(genes)).to(card)
+    got, ref = cv.conveyor_state(wl, card), cv.conveyor_state(wl, card)
+    n_seg = -(-wl.max_chunks // segments)
+    for c0 in range(0, wl.max_chunks, n_seg):
+        c1 = min(c0 + n_seg, wl.max_chunks)
+        cv.conveyor_fill(table, wl, 3, 2, c0, c1, got)
+        cv.conveyor_fill_ref(table, wl, 3, 2, c0, c1, ref)
+    for a, b in zip((got.score, got.brow, got.snaps, got.carry),
+                    (ref.score, ref.brow, ref.snaps, ref.carry)):
+        assert torch.equal(a, b)
+    wplan = cv.conveyor_walk_plan(wl, genes, range(wl.num_pairs))
+    words, counts = wk.walk(table, wplan, got.brow, got.snaps, 3, 2)
+    rwords, rcounts = wk.walk_ref(table, wplan, got.brow, got.snaps, 3, 2)
+    assert torch.equal(words, rwords) and torch.equal(counts, rcounts)
+
+
+def test_conveyor_pipeline_on_card_matches_oracle(card):
+    genes = _genes(10, [1500, 1300, 900, 2000])
+    pairs = [(1, 0), (2, 0), (2, 1), (3, 0), (3, 2)]
+    cfg = TorchConfig(rb_conveyor=512, snap_k=256, conveyors=2)
+    got = cv.align_pairs_conveyor(genes, pairs, 3, 2, device=card, config=cfg)
+    for (i, j), res in zip(pairs, got):
+        assert res == nw_align_numpy(genes[i], genes[j], 3, 2)
+
+
+def test_conveyor_rejects_too_wide_band(card):
+    with pytest.raises(ValueError, match="one block"):
+        cv.plan_sweeps(["A" * 10, "C" * 10], [(0, 1)], 8192, 1024, 1)

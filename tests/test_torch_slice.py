@@ -55,7 +55,7 @@ def _problem(seed=42):
 
 @pytest.fixture
 def device_pairs(monkeypatch):
-    """Counts the pairs that enter the device pipeline."""
+    """Counts the pairs that enter the banded device pipeline."""
     seen = []
     real = batch.band_fill
 
@@ -70,7 +70,7 @@ def device_pairs(monkeypatch):
 @pytest.mark.parametrize("rb,snap_k", [(128, 1024), (200, 96)])
 def test_kway_matches_jax_package(device_pairs, rb, snap_k):
     problem = _problem()
-    cfg = TorchConfig(rb=rb, snap_k=snap_k, host_threshold=1, device="cpu")
+    cfg = TorchConfig(rb=rb, snap_k=snap_k, host_threshold=1, device="cpu", fill_mode="banded")
     got = align_kway(problem, config=cfg)
     want = jax_align_kway(problem, backend="numpy")
     assert device_pairs == [10]  # all 10 pairs took fill + walk
@@ -82,7 +82,8 @@ def test_kway_threshold_splits_host_and_device(device_pairs):
     problem = _problem(7)
     lens = [len(g) for g in problem.genes]
     cells = sorted(lens[i] * lens[j] for i in range(5) for j in range(i))
-    cfg = TorchConfig(rb=150, snap_k=128, host_threshold=cells[5], device="cpu")
+    cfg = TorchConfig(rb=150, snap_k=128, host_threshold=cells[5], device="cpu",
+                      fill_mode="banded")
     got = align_kway(problem, config=cfg)
     assert device_pairs == [5]
     want = jax_align_kway(problem, backend="numpy")
@@ -91,7 +92,7 @@ def test_kway_threshold_splits_host_and_device(device_pairs):
 
 def test_kway_checkpoint_resume(tmp_path, device_pairs):
     problem = _problem(3)
-    cfg = TorchConfig(rb=128, snap_k=256, host_threshold=1, device="cpu")
+    cfg = TorchConfig(rb=128, snap_k=256, host_threshold=1, device="cpu", fill_mode="banded")
     path = str(tmp_path / "journal.jsonl")
     first = align_kway(problem, config=cfg, checkpoint=path)
     again = align_kway(problem, config=cfg, checkpoint=path)

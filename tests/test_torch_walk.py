@@ -17,7 +17,14 @@ from msa_tpu.ops.reference import nw_align_numpy
 from msa_tpu.utils.alignment import moves_to_alignment
 from msa_tpu_torch.ops.band_fill import gene_table, plan_pairs
 from msa_tpu_torch.ops.batch import align_pairs_batched
-from msa_tpu_torch.ops.walk import decode_moves, pack_moves, walk_ref
+from msa_tpu_torch.ops.walk import (
+    W_SWAP,
+    banded_walk_plan,
+    decode_moves,
+    pack_moves,
+    pair_moves,
+    walk_ref,
+)
 from msa_tpu_torch.state import fill_state_from_jax
 
 ALPHA = list("ACGT")
@@ -85,7 +92,10 @@ def test_walk_on_jax_fill(m, n, pxy, pgap):
         v_len=snaps.shape[2] * snaps.shape[3], snap_k=SNAP_K,
     )
     plan = plan_pairs([m, n], [(0, 1)], 128, SNAP_K)
-    words, counts = walk_ref(torch.from_numpy(gene_table([x, y])), plan, fill, pxy, pgap)
+    words, counts = walk_ref(
+        torch.from_numpy(gene_table([x, y])), banded_walk_plan(plan), fill.rows,
+        fill.snaps, pxy, pgap,
+    )
     moves = decode_moves(words.numpy()[None, :], counts.numpy())
     want = nw_align_numpy(x, y, pxy, pgap)
     assert (int(fill.score[0]), *moves_to_alignment(x, y, moves)) == want
@@ -109,3 +119,26 @@ def test_walk_skewed_pairs():
     got = align_pairs_batched(genes, pairs, 3, 2, device=CPU, rb=100, snap_k=64)
     for (i, j), res in zip(pairs, got):
         assert res == nw_align_numpy(genes[i], genes[j], 3, 2), (i, j)
+
+
+@pytest.mark.parametrize("rb,snap_k", [(100, 64), (1024, 1024)])
+def test_walk_swap_transposed_pairs(rb, snap_k):
+    """Pairs filled transposed and walked with swap = 1 give, swapped back,
+    the original orientation's alignment (the up/left tie-break flips)."""
+    from msa_tpu_torch.ops.band_fill import band_fill
+
+    rng = np.random.default_rng(rb + snap_k)
+    genes = [_rand_seq(rng, n) for n in (420, 90, 260, 15)]
+    pairs = [(1, 0), (2, 0), (3, 2), (0, 3)]
+    transposed = [(j, i) for i, j in pairs]
+    plan = plan_pairs([len(g) for g in genes], transposed, rb, snap_k)
+    wplan = banded_walk_plan(plan)
+    wplan.pairs[:, W_SWAP] = 1
+    table = torch.from_numpy(gene_table(genes))
+    fill = band_fill(table, plan, 3, 2)
+    words, counts = walk_ref(table, wplan, fill.rows, fill.snaps, 3, 2)
+    for p, (i, j) in enumerate(pairs):
+        moves = pair_moves(words.numpy(), counts.numpy(), wplan, p)
+        aj, ai = moves_to_alignment(genes[j], genes[i], moves)
+        want = nw_align_numpy(genes[i], genes[j], 3, 2)
+        assert (int(fill.score[p]), ai, aj) == want, (i, j)
