@@ -32,7 +32,25 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    the conveyor fill and the walk launched, 78 conveyor pairs; each kernel
    alone on big13; the banded and conveyor times side by side; then the
    permuted big13 and the xulin sets under ``fill_mode=conveyor``;
-7. one JSON line of the kernels' launches, errors and times, then the last
+7. ``score_only_vs_plain``: the fill kernel with snapshots off on the
+   phase-2 inputs, scores and rows equal to ``band_fill_ref`` with snapshots
+   off and scores equal to the full fill's;
+8. ``sharded_scores``: ``parallel/engine.py::sharded_pair_scores`` on big13,
+   the 78 scores equal to the golden penalties;
+9. ``calibrate``: the cost model measured on the card under a temporary
+   cache, then read back from the cache;
+10. ``two_shards_one_card``: big13 through the CLI with the process's
+   devices set to [cuda:0, cuda:0], so the k-way engine splits the device
+   pairs into two shards run by two host threads: the golden output;
+11. ``distributed``: two ``msa_tpu_torch.cli --distributed --backend cuda``
+   processes on big13 (gloo on 127.0.0.1, both on this card): process 0
+   prints the golden output, process 1 nothing, and their journals cover
+   the 78 tasks disjointly;
+12. ``batched_profile``: ``--batched --profile-dir`` on xulin_test against
+   its recorded golden, the trace naming the fill and walk kernels;
+13. ``torch_backend``: ``--backend torch`` (the plain-torch sweep) on the
+   card on mseq1;
+14. one JSON line of the kernels' launches, errors and times, then the last
    line ``{"ok": true, "device": {...}}``.
 
 It needs the repository around it and a CUDA device, and exits nonzero
@@ -45,8 +63,10 @@ import contextlib
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 # Golden output of the reference for data/mseq-big13-example.txt
@@ -219,11 +239,10 @@ def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=Fal
 
 
 @contextlib.contextmanager
-def port_env(**values):
-    """MSA_TPU_TORCH_* settings for the CLI runs inside the block."""
-    keys = {f"MSA_TPU_TORCH_{k.upper()}": str(v) for k, v in values.items()}
-    saved = {k: os.environ.get(k) for k in keys}
-    os.environ.update(keys)
+def set_env(values):
+    """Environment variables for the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
@@ -232,6 +251,11 @@ def port_env(**values):
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
+
+
+def port_env(**values):
+    """MSA_TPU_TORCH_* settings for the CLI runs inside the block."""
+    return set_env({f"MSA_TPU_TORCH_{k.upper()}": str(v) for k, v in values.items()})
 
 
 def run_cli(args):
@@ -283,6 +307,208 @@ def conformance(mode, counted):
             raise AssertionError(f"{gold['dataset']}: penalties differ from the golden")
         phase("conformance", fill_mode=mode, dataset=gold["dataset"], hash_prefix=lines[1][:16],
               device_pairs=counted.pairs, seconds=seconds)
+
+
+def check_score_only(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
+    """The fill kernel with snapshots off against its plain version and the full fill."""
+    import torch
+
+    from msa_tpu_torch.ops import band_fill as bf
+
+    lengths = [len(g) for g in genes]
+    off = bf.plan_pairs(lengths, pairs, rb, snap_k, snaps=False)
+    full = bf.plan_pairs(lengths, pairs, rb, snap_k)
+    table = torch.from_numpy(bf.gene_table(genes)).cuda()
+    got = bf.band_fill(table, off, pxy, pgap)
+    ref, plain_ms = host_ms(lambda: bf.band_fill_ref(table, off, pxy, pgap))
+    with_snaps = bf.band_fill(table, full, pxy, pgap)
+    ms = cuda_ms(lambda: bf.band_fill(table, off, pxy, pgap), reps=3)
+    full_ms = cuda_ms(lambda: bf.band_fill(table, full, pxy, pgap), reps=3)
+    err = max((got.score - ref.score).abs().max().item(), (got.rows - ref.rows).abs().max().item())
+    if err != 0 or got.snaps.numel() != 0:
+        raise AssertionError(f"{name}: snapshots-off fill differs from band_fill_ref by {err}")
+    if not torch.equal(got.score, with_snaps.score):
+        raise AssertionError(f"{name}: snapshots-off scores differ from the full fill's")
+    phase("score_only_vs_plain", case=name, pairs=off.num_pairs, rb=rb,
+          scores=got.score.tolist(), max_abs_err=err, ms=ms, full_mode_ms=full_ms,
+          plain_ms=plain_ms)
+    return err, ms, plain_ms
+
+
+def sharded_scores(problem, cells, smi):
+    """Every big13 pair's score, snapshots off, against the golden penalties."""
+    from msa_tpu_torch.config import TorchConfig
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.parallel import engine, mesh
+
+    bf.band_fill.launches = bf.band_fill.pairs = 0
+    scores, ms = host_ms(lambda: engine.sharded_pair_scores(problem.genes, problem.pxy, problem.pgap))
+    launches, pairs = bf.band_fill.launches, bf.band_fill.pairs
+    if scores.tolist() != BIG13_PENALTIES:
+        raise AssertionError("big13 sharded scores differ from the golden penalties")
+    if launches < 1 or pairs != 78:
+        raise AssertionError(f"sharded scores did not run on the kernel: {launches} {pairs}")
+    phase("sharded_scores", pairs=len(scores), ms=ms, gcups=cells / ms / 1e6,
+          band_fill_launches=launches, device_pairs=pairs,
+          devices=[str(d) for d in mesh.local_devices(TorchConfig.from_env())], card=smi)
+
+
+def calibration(smi):
+    """The cost model measured on the card, then read back from its cache."""
+    from msa_tpu_torch.parallel import costmodel
+
+    with tempfile.TemporaryDirectory() as cache, set_env({"XDG_CACHE_HOME": cache}):
+        t0 = time.perf_counter()
+        model = costmodel.calibrate(use_cache=False)
+        seconds = time.perf_counter() - t0
+        if model is None:
+            raise AssertionError("calibrate returned None on the card")
+        t0 = time.perf_counter()
+        cached = costmodel.calibrate()
+        cached_seconds = time.perf_counter() - t0
+    if cached != model:
+        raise AssertionError(f"cached calibration {cached} differs from {model}")
+    phase("calibrate", gcups=model.gcups, fixed_us=model.fixed_us, seconds=seconds,
+          cached_seconds=cached_seconds, kernel_version=costmodel.kernel_version(), card=smi)
+
+
+def two_shards_one_card(conveyor, smi):
+    """big13 with the device pairs split over [cuda:0, cuda:0]: two threads, two shards."""
+    import torch
+
+    from msa_tpu_torch.ops import conveyor as cv
+    from msa_tpu_torch.parallel import mesh
+
+    shards = []
+    real_devices, real_align = mesh.local_devices, cv.align_pairs_conveyor
+
+    def spy(genes, pairs, *a, **kw):
+        shards.append(len(pairs))
+        return real_align(genes, pairs, *a, **kw)
+
+    mesh.local_devices = lambda config: [torch.device("cuda", 0)] * 2
+    cv.align_pairs_conveyor = spy
+    try:
+        seconds, launches, device_pairs = run_big13(conveyor)
+    finally:
+        mesh.local_devices, cv.align_pairs_conveyor = real_devices, real_align
+    if len(shards) != 2 or sum(shards) != 78 or min(launches.values()) < 2:
+        raise AssertionError(f"big13 was not split into two shards: {shards} {launches}")
+    phase("two_shards_one_card", hash=BIG13_HASH, shard_pairs=shards, seconds=seconds,
+          launches=launches, device_pairs=device_pairs, card=smi)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def distributed(smi):
+    """big13 through two ``--distributed`` CLI processes on this one card."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, MSA_TPU_TORCH_LOG="INFO", XDG_CACHE_HOME=tmp)
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-m", "msa_tpu_torch.cli", "--distributed", "--backend", "cuda",
+                 "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+                 "--process-id", str(pid), "--input", "data/mseq-big13-example.txt",
+                 "--checkpoint", os.path.join(tmp, "j-{proc}.jsonl")],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for pid in range(2)
+        ]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        for p, (_, err) in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"distributed process failed:\n{err[-3000:]}")
+        lines = outs[0][0].split("\n")
+        if lines[1] != BIG13_HASH or lines[2].split() != [str(p) for p in BIG13_PENALTIES]:
+            raise AssertionError(f"process 0 printed no golden output: {outs[0][0][:300]}")
+        if outs[1][0] != "":
+            raise AssertionError(f"process 1 printed: {outs[1][0][:300]}")
+        owner = {}
+        for pid in range(2):
+            with open(os.path.join(tmp, f"j-{pid}.jsonl")) as f:
+                for rec in map(json.loads, f):
+                    if rec["task_id"] in owner:
+                        raise AssertionError(f"task {rec['task_id']} journaled twice")
+                    owner[rec["task_id"]] = pid
+        if sorted(owner) != list(range(78)):
+            raise AssertionError(f"the journals cover {len(owner)} of 78 tasks")
+    shards = []
+    for _, err in outs:
+        line = next(ln for ln in err.splitlines() if "msa_tpu_torch.engine: shard " in ln)
+        shards.append(json.loads(line.split("shard ", 1)[1]))
+    for sh in shards:
+        if sh["launches"]["conveyor_fill"] < 1 or sh["launches"]["walk"] < 1:
+            raise AssertionError(f"process {sh['process']} did not run on the kernels: {sh}")
+    phase("distributed", processes=2, hash=BIG13_HASH, seconds=seconds,
+          pairs=[sh["pairs"] for sh in shards], policy=shards[0]["policy"],
+          launches=[sh["launches"] for sh in shards], time_us=int(lines[0].split()[1]),
+          journaled=len(owner), card=smi)
+
+
+def batched_profile(counted, smi):
+    """--batched --profile-dir on xulin_test: golden, and a trace of the kernels."""
+    with open("data/host_goldens.jsonl") as f:
+        gold = next(g for g in map(json.loads, f) if g["dataset"] == "data/xulin_test.txt")
+    for fn in counted.values():
+        fn.launches = fn.pairs = 0
+    with tempfile.TemporaryDirectory() as prof:
+        lines, seconds = run_cli(["--batched", "--backend", "cuda", "--profile-dir", prof,
+                                  "--input", gold["dataset"]])
+        traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+        if len(traces) != 1:
+            raise AssertionError(f"--profile-dir wrote {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    if lines[1] != gold["chain_hash"] or lines[2].split() != [str(p) for p in gold["penalties"]]:
+        raise AssertionError(f"xulin_test hash {lines[1]} is not the golden hash")
+    kernel_us = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            kernel_us[ev["name"]] = kernel_us.get(ev["name"], 0.0) + float(ev.get("dur", 0))
+    fills = [k for k in kernel_us if "fill_kernel" in k]
+    walks = [k for k in kernel_us if "walk_kernel" in k]
+    if not fills or not walks:
+        raise AssertionError(f"the trace names no fill or walk kernel: {sorted(kernel_us)[:20]}")
+    phase("batched_profile", dataset=gold["dataset"], hash_prefix=lines[1][:16], seconds=seconds,
+          launches={name: fn.launches for name, fn in counted.items()},
+          trace_kernel_us={k: kernel_us[k] for k in fills + walks}, card=smi)
+
+
+def torch_backend(smi):
+    """--backend torch on the card: every mseq1 pair through the plain-torch sweep."""
+    from msa_tpu_torch.ops import nw_torch
+
+    seen = set()
+    real = nw_torch.diag_sweep
+
+    def spy(xpad, *a, **kw):
+        seen.add(str(xpad.device))
+        return real(xpad, *a, **kw)
+
+    nw_torch.diag_sweep = spy
+    try:
+        lines, seconds = run_cli(["--backend", "torch", "--input", "data/mseq1.dat"])
+    finally:
+        nw_torch.diag_sweep = real
+    if not lines[1].startswith(MSEQ1_HASH_PREFIX):
+        raise AssertionError(f"mseq1 hash {lines[1]} is not the golden hash")
+    if seen != {"cuda:0"}:
+        raise AssertionError(f"the torch backend's sweeps ran on {seen}")
+    phase("torch_backend", dataset="data/mseq1.dat", hash_prefix=lines[1][:16], sweep_devices=sorted(seen),
+          seconds=seconds, card=smi)
 
 
 def main() -> int:
@@ -428,7 +654,18 @@ def main() -> int:
           conveyor26_fill_ms=fill26_ms, card=smi)
     conformance("conveyor", cv.conveyor_fill)
 
-    # 7. summary
+    # 7-13. this slice: score-only fill, sharded scores, calibration, the
+    # device split, two processes, the profiler, the torch backend
+    check_score_only("small", small, [(1, 0), (2, 0), (2, 1)], rb=1023, snap_k=1024)
+    check_score_only("main_geometry", main_geom, [(0, 1)], rb=cfg.rb, snap_k=cfg.snap_k)
+    sharded_scores(problem, cells, smi)
+    calibration(smi)
+    two_shards_one_card(conveyor, smi)
+    distributed(smi)
+    batched_profile(conveyor, smi)
+    torch_backend(smi)
+
+    # 14. summary
     sources = {
         "band_fill": ("msa_tpu_torch/csrc/band_fill.cu", "msa_tpu/ops/pallas_nw.py:79"),
         "walk": ("msa_tpu_torch/csrc/walk.cu", "msa_tpu/ops/pallas_walk.py:80"),

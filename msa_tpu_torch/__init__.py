@@ -8,9 +8,12 @@ hand-written CUDA kernels for sm_90a: the banded fill
 the traceback walk (``csrc/walk.cu``); each has a plain PyTorch version
 beside it, which runs for tensors on the CPU.
 
-- ``ops``      kernels, their plain versions, the kernel build, the pipelines;
-- ``models``   pairwise aligner and k-way engine (fill-mode routing);
-- ``parallel`` the LPT split of pairs over conveyor sweeps;
+- ``ops``      kernels, their plain versions, the kernel build, the pipelines,
+               the anti-diagonal sweep in plain torch (``nw_torch``);
+- ``models``   pairwise aligner and k-way engine (fill-mode routing, the
+               LPT split of the device pairs over the process's devices);
+- ``parallel`` schedules, cost model, devices, the multi-process engine;
+- ``utils``    timing, tracing and logging;
 - ``state``    the JAX fills' output in the port's layouts;
 - ``cli``      the reference's stdin/stdout contract.
 

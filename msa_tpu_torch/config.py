@@ -1,9 +1,9 @@
 """Knobs of the PyTorch/CUDA port.
 
-Only what the device pipeline (banded or conveyor fill, walk) reads lives
-here. Every field can be
-overridden from the environment with the prefix ``MSA_TPU_TORCH_`` (for
-example ``MSA_TPU_TORCH_RB=4095``). Unlike the JAX package, nothing is sized
+What the device pipeline (banded or conveyor fill, walk) and the
+multi-device engine read lives here. Every field can be overridden from
+the environment with the prefix ``MSA_TPU_TORCH_`` (for example
+``MSA_TPU_TORCH_RB=4095``). Unlike the JAX package, nothing is sized
 at compile time: the kernels take every size as a runtime argument, so a
 config object is passed to the aligner instead of being read at import.
 """
@@ -56,6 +56,16 @@ class TorchConfig:
     # Concurrent conveyor sweeps (one thread block each); 0 means
     # min(device pairs, SM count).
     conveyors: int = 0
+    # Pair schedule of the multi-process engine (parallel/engine.py):
+    # "calibrated" (LPT over the cost model that process 0 measures on its
+    # card and broadcasts; "lpt" when there is no card), "lpt" (cost m * n)
+    # or "block" (contiguous task ids).
+    schedule_policy: str = "calibrated"
+    # Devices one process splits its device pairs over (models/kway.py,
+    # one host thread each); 0 means every card of the process.
+    local_devices: int = 0
+    # Write a torch.profiler trace of the run into this directory when set.
+    profile_dir: str = ""
 
     @classmethod
     def from_env(cls, **overrides) -> "TorchConfig":

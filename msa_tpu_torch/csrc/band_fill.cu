@@ -4,7 +4,12 @@
 // pallas_call :293). Per pair it computes the score dp[m][n], the bottom row
 // of every band but the last (column j at index j - 1), and a snapshot of the
 // wavefront state (p1, p1s, p2s) entering every step k * snap_k + 1 of each
-// band, which seeds the traceback walk (walk.cu).
+// band, which seeds the traceback walk (walk.cu). With snaps null (the
+// score-only mode: nw_score, calibration; emit_snaps=False in the Pallas
+// kernel) no snapshot is written; rows stay, as they carry each band's bottom
+// row to the next band. The mode is a template flag, not a test in the step
+// loop: a runtime null check there made the full mode's fill 10 % slower on
+// an H100 (big13 at rb 8191: 1,548 ms -> 1,699 ms).
 //
 // Layout (all int32, offsets per pair from the parameter table):
 //   rows  [pair][band < nb - 1][n]
@@ -24,6 +29,7 @@
 
 #include "common.cuh"
 
+template <bool kSnaps>
 __global__ void __launch_bounds__(MAX_THREADS)
 band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
                  const long long* __restrict__ params, int rb, int snap_k,
@@ -67,7 +73,7 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
       L.p1s[c] = q == 1 ? B.i0 * pgap : NEG_FILL;
       L.p2s[c] = NEG_FILL;
     }
-    write_snapshot(snap_b, L, q0, lanes);
+    if (kSnaps) write_snapshot(snap_b, L, q0, lanes);
     sh_yd[0][tid] = L.yd[CELLS - 1];
     __syncthreads();
 
@@ -86,7 +92,7 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
       __syncthreads();
       buf ^= 1;
       L.p1s[0] = tid ? sh_p1[buf][tid - 1] : NEG_FILL;
-      if (dl % snap_k == 0 && dl < steps)
+      if (kSnaps && dl % snap_k == 0 && dl < steps)
         write_snapshot(snap_b + (long long)(dl / snap_k) * 3 * lanes, L, q0,
                        lanes);
     }
@@ -96,14 +102,15 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
 }
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue when
-// rb + 1 lanes do not fit one block).
+// rb + 1 lanes do not fit one block). snaps may be null: no snapshots.
 extern "C" int band_fill(const void* genes, long long stride,
                          const void* params, int num_pairs, int rb, int snap_k,
                          int pxy, int pgap, void* score, void* rows,
                          void* snaps, void* stream) {
   const int threads = threads_for(rb + 1);
   if (threads == 0 || num_pairs <= 0 || snap_k <= 0) return cudaErrorInvalidValue;
-  band_fill_kernel<<<num_pairs, threads, 0, (cudaStream_t)stream>>>(
+  auto kernel = snaps ? band_fill_kernel<true> : band_fill_kernel<false>;
+  kernel<<<num_pairs, threads, 0, (cudaStream_t)stream>>>(
       (const unsigned char*)genes, stride, (const long long*)params, rb,
       snap_k, pxy, pgap, (int*)score, (int*)rows, (int*)snaps);
   return (int)cudaGetLastError();

@@ -4,14 +4,15 @@ Port of ``msa_tpu/models/kway.py``: all k(k-1)/2 pairs in canonical task
 order, each pair's hash folded into one SHA-512 chain and its penalty
 listed, both by task id, so the output does not depend on where or in which
 order the pairs ran. Every pair at or above ``host_threshold`` DP cells takes
-the device pipeline (``ops/batch.py``: one fill launch and one walk launch
-for all of them); the rest take the host kernel. A pair journal makes a run
-resumable.
+the device pipeline (``ops/conveyor.py`` or ``ops/batch.py``), split by LPT
+over the process's devices with one host thread each; the rest take the host
+kernel. A pair journal makes a run resumable.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional, Sequence
 
 from msa_tpu.utils.hashing import chain_hashes, pair_hash
@@ -69,35 +70,24 @@ class KWayAligner:
                 if t.task_id in done:
                     penalty, h = done[t.task_id]
                     results[t.task_id] = PairResult(t.task_id, penalty, "", "", h)
+        on_result = None
+        if journal is not None:
+            # Each pair is journaled as its walk decodes, so a crash keeps
+            # every finished pair. Device and decode threads call in at once.
+            lock = threading.Lock()
+
+            def on_result(t, triple):
+                penalty, a1, a2 = triple
+                with lock:
+                    journal.record(t.task_id, penalty, pair_hash(a1, a2))
+
         try:
             remaining = [t for t in tasks if t.task_id not in results]
             device_tasks = [t for t in remaining if pw.on_device(genes[t.i], genes[t.j])]
             if device_tasks:
-
-                def on_result(idx, triple):
-                    t = device_tasks[idx]
-                    penalty, a1, a2 = triple
-                    results[t.task_id] = PairResult(
-                        t.task_id, penalty, a1, a2, pair_hash(a1, a2)
-                    )
-                    if journal is not None:
-                        journal.record(t.task_id, penalty, results[t.task_id].problem_hash)
-
-                pairs = [(t.i, t.j) for t in device_tasks]
-                if choose_fill_mode(pw.config, len(pairs)) == "conveyor":
-                    from msa_tpu_torch.ops.conveyor import align_pairs_conveyor
-
-                    align_pairs_conveyor(
-                        genes, pairs, pw.pxy, pw.pgap, device=pw.device,
-                        config=pw.config, on_result=on_result,
-                    )
-                else:
-                    from msa_tpu_torch.ops.batch import align_pairs_batched
-
-                    align_pairs_batched(
-                        genes, pairs, pw.pxy, pw.pgap, device=pw.device,
-                        rb=pw.config.rb, snap_k=pw.config.snap_k, on_result=on_result,
-                    )
+                triples = self._run_batched(genes, device_tasks, on_result)
+                for t, (penalty, a1, a2) in zip(device_tasks, triples):
+                    results[t.task_id] = PairResult(t.task_id, penalty, a1, a2, pair_hash(a1, a2))
             for t in tasks:
                 if t.task_id not in results:
                     results[t.task_id] = pw.do_task(t.task_id, genes[t.i], genes[t.j])
@@ -108,6 +98,51 @@ class KWayAligner:
             if journal is not None:
                 journal.close()
         return [results[t.task_id] for t in tasks]
+
+    def _run_batched(self, genes: Sequence[str], tasks: Sequence, on_task_result=None):
+        """(penalty, align1, align2) of each device task, in ``tasks`` order.
+
+        Port of ``msa_tpu/models/kway.py:220-287``: the device pairs are
+        split by LPT (cost m * n, ties by task id) over the process's devices
+        (``parallel/mesh.py::local_devices``), each shard at least two pairs,
+        and every device runs the whole fill + walk pipeline in a host thread
+        of its own, under ``torch.cuda.device`` and a stream of its own. The
+        fill mode is chosen per shard by its pair count.
+        ``on_task_result(task, triple)`` fires as each pair decodes, from any
+        thread.
+        """
+        from msa_tpu_torch.parallel.mesh import local_devices, map_shards
+        from msa_tpu_torch.parallel.schedule import lpt_schedule
+
+        pw = self.pairwise
+
+        def run_on(dev, shard):
+            cb = None
+            if on_task_result is not None:
+                def cb(idx, triple):
+                    on_task_result(shard[idx], triple)
+
+            pairs = [(t.i, t.j) for t in shard]
+            if choose_fill_mode(pw.config, len(pairs)) == "conveyor":
+                from msa_tpu_torch.ops.conveyor import align_pairs_conveyor
+
+                return align_pairs_conveyor(
+                    genes, pairs, pw.pxy, pw.pgap, device=dev, config=pw.config, on_result=cb,
+                )
+            from msa_tpu_torch.ops.batch import align_pairs_batched
+
+            return align_pairs_batched(
+                genes, pairs, pw.pxy, pw.pgap, device=dev, rb=pw.config.rb,
+                snap_k=pw.config.snap_k, on_result=cb,
+            )
+
+        devs = local_devices(pw.config)  # at most config.local_devices
+        n_used = max(1, min(len(devs), len(tasks) // 2))
+        if n_used == 1:
+            return run_on(pw.device, tasks)
+        shards = lpt_schedule([(t, len(genes[t.i]) * len(genes[t.j])) for t in tasks], n_used)
+        by_id = map_shards(run_on, devs, shards)
+        return [by_id[t.task_id] for t in tasks]
 
     def align_all(
         self, genes: Sequence[str], keep_alignments: bool = False,

@@ -4,6 +4,9 @@ Port of ``msa_tpu/models/pairwise.py``. Backends:
 
 - ``numpy``  the host oracle (``msa_tpu.ops.reference``);
 - ``native`` the C++ host kernel (``msa_tpu.native``);
+- ``torch``  the anti-diagonal sweep in plain torch ops (``ops/nw_torch.py``,
+             the counterpart of the JAX package's ``jax`` backend) for every
+             pair, on ``config.device`` or a card when one is present;
 - ``cuda``   the device pipeline (conveyor or banded fill, walk) on a card;
              raises when there is none;
 - ``auto``   the device pipeline on ``config.device`` (or a card, when one
@@ -23,7 +26,7 @@ import torch
 from msa_tpu.utils.hashing import pair_hash
 from msa_tpu_torch.config import TorchConfig
 
-BACKENDS = ("numpy", "native", "cuda", "auto")
+BACKENDS = ("numpy", "native", "torch", "cuda", "auto")
 
 
 @dataclasses.dataclass
@@ -36,7 +39,11 @@ class PairResult:
 
 
 def pipeline_device(backend: str, config: TorchConfig) -> Optional[torch.device]:
-    """The torch device big pairs run on, or None for host-only backends."""
+    """The torch device pairs run on, or None for host-only backends.
+
+    For ``torch`` that is the sweep's device; for the others the device
+    pipeline's.
+    """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend in ("numpy", "native"):
@@ -50,7 +57,9 @@ def pipeline_device(backend: str, config: TorchConfig) -> Optional[torch.device]
         return dev
     if config.device:
         return torch.device(config.device)
-    return torch.device("cuda") if torch.cuda.is_available() else None
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    return torch.device("cpu") if backend == "torch" else None
 
 
 def align_host(x: str, y: str, pxy: int, pgap: int, backend: str) -> Tuple[int, str, str]:
@@ -75,9 +84,17 @@ class PairwiseAligner:
         self.device = pipeline_device(backend, self.config)
 
     def on_device(self, x: str, y: str) -> bool:
-        return self.device is not None and len(x) * len(y) >= self.config.host_threshold
+        """Whether the pair takes the device pipeline (fill + walk)."""
+        return (
+            self.backend != "torch" and self.device is not None
+            and len(x) * len(y) >= self.config.host_threshold
+        )
 
     def align(self, x: str, y: str) -> Tuple[int, str, str]:
+        if self.backend == "torch":
+            from msa_tpu_torch.ops.nw_torch import nw_align_torch
+
+            return nw_align_torch(x, y, self.pxy, self.pgap, device=self.device)
         if self.on_device(x, y):
             from msa_tpu_torch.ops.batch import align_pairs_batched
 

@@ -46,6 +46,7 @@ SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -84,18 +85,20 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
     procs = {}
     for name in todo:
         out = _lib_path(name)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", out + ".tmp",
-               os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = (out, subprocess.Popen(
+        # The pid keeps processes that build at once off each other's
+        # output; os.replace then installs one complete library atomically.
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
     failed = []
-    for name, (out, proc) in procs.items():
+    for name, (out, tmp, proc) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(f"{name}:\n{logs[name]}")
         else:
-            os.replace(out + ".tmp", out)
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
@@ -118,3 +121,13 @@ def load(name: str) -> ctypes.CDLL:
 def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+
+
+def count(fn, pairs: int) -> None:
+    """Count one launch of ``fn``'s kernel over ``pairs`` pairs.
+
+    Device threads launch at once, so the counters are updated under a lock.
+    """
+    with _COUNT_LOCK:
+        fn.launches += 1
+        fn.pairs += pairs

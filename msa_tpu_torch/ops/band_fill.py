@@ -17,6 +17,10 @@ aligns and where its outputs go in three flat int32 buffers:
 The JAX kernel pads each state to (R, 128) tiles and fixes the band count at
 a compiled cap; here every size is a runtime argument and nothing is padded.
 
+A plan made with ``snaps=False`` has no snapshots (``snaps_len`` = 0): the
+score-only mode of ``emit_snaps=False``, which ``nw_score`` runs (port of
+``msa_tpu/ops/pallas_nw.py::nw_score_pallas``).
+
 ``band_fill`` launches ``csrc/band_fill.cu`` for CUDA tensors and runs
 ``band_fill_ref`` for CPU tensors; any other device raises.
 """
@@ -71,9 +75,12 @@ class FillState:
 
 def plan_pairs(
     lengths: Sequence[int], pairs: Sequence[Tuple[int, int]], rb: int,
-    snap_k: int,
+    snap_k: int, snaps: bool = True,
 ) -> Plan:
-    """Lay out pairs (x gene, y gene) of sequences with these lengths."""
+    """Lay out pairs (x gene, y gene) of sequences with these lengths.
+
+    ``snaps=False``: no snapshot slots (S = 0), for a score-only fill.
+    """
     if rb < 1:
         raise ValueError(f"rb must be positive, got {rb}")
     if snap_k < 1:
@@ -85,7 +92,7 @@ def plan_pairs(
         if m < 1 or n < 1:
             raise ValueError(f"pair {p} has an empty sequence")
         nb = -(-m // rb)
-        s = (min(rb, m) + n - 1) // snap_k + 1
+        s = (min(rb, m) + n - 1) // snap_k + 1 if snaps else 0
         params[p] = [m, n, xg, yg, nb, s, snap_off, rows_off]
         snap_off += nb * s * 3 * (rb + 1)
         rows_off += (nb - 1) * n
@@ -131,11 +138,11 @@ def band_fill(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillState
     err = lib.band_fill(
         table.data_ptr(), table.stride(0), params.data_ptr(), plan.num_pairs,
         plan.rb, plan.snap_k, pxy, pgap, out.score.data_ptr(),
-        out.rows.data_ptr(), out.snaps.data_ptr(), ctypes.c_void_p(stream),
+        out.rows.data_ptr(), out.snaps.data_ptr() if plan.snaps_len else None,
+        ctypes.c_void_p(stream),
     )
     _build.check("band_fill", err)
-    band_fill.launches += 1
-    band_fill.pairs += plan.num_pairs
+    _build.count(band_fill, plan.num_pairs)
     return out
 
 
@@ -180,8 +187,9 @@ def band_fill_ref(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillS
             snap_b = snap_off + b * S * 3 * lanes
 
             def snapshot(s):
-                base = snap_b + s * 3 * lanes
-                snaps[base : base + 3 * lanes] = torch.cat([p1, p1s, p2s])
+                if plan.snaps_len:
+                    base = snap_b + s * 3 * lanes
+                    snaps[base : base + 3 * lanes] = torch.cat([p1, p1s, p2s])
 
             snapshot(0)
             for dl in range(1, steps + 1):
@@ -201,3 +209,18 @@ def band_fill_ref(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillS
             if b < nb - 1:
                 rows[rows_off + b * n : rows_off + (b + 1) * n] = bottom
     return FillState(score, rows, snaps)
+
+
+def nw_score(
+    genes: Sequence[str], pairs: Sequence[Tuple[int, int]], pxy: int, pgap: int,
+    *, device: torch.device, rb: int = MAX_RB,
+) -> np.ndarray:
+    """(P,) int32 scores of the pairs (x gene, y gene): one fill launch, no snapshots.
+
+    Port of ``msa_tpu/ops/pallas_nw.py::nw_score_pallas`` for many pairs at
+    once; the result is fetched, so the call returns when the fill is done.
+    """
+    # snap_k is unused without snapshots.
+    plan = plan_pairs([len(g) for g in genes], pairs, rb, snap_k=1, snaps=False)
+    table = torch.from_numpy(gene_table(genes)).to(device)
+    return band_fill(table, plan, pxy, pgap).score.cpu().numpy()

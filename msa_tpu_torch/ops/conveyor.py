@@ -404,9 +404,7 @@ def conveyor_fill(
         state.snaps.data_ptr(), state.carry.data_ptr(), ctypes.c_void_p(stream),
     )
     _build.check("conveyor_fill", err)
-    conveyor_fill.launches += 1
-    if c0 == 0:
-        conveyor_fill.pairs += wl.num_pairs
+    _build.count(conveyor_fill, wl.num_pairs if c0 == 0 else 0)
     return state
 
 
@@ -550,8 +548,9 @@ def align_pairs_conveyor(
     ``pair_ready`` chunk the fill has passed, and the host decodes them on
     ``config.decode_workers`` threads while the next segment fills.
     Workloads whose snapshots exceed ``hbm_snapshot_budget`` are split in
-    two halves (recursively). ``on_result(idx, triple)`` fires once per pair,
-    in the caller's order, after the last decode.
+    two halves (recursively). ``on_result(idx, triple)`` fires once per pair
+    as its decode finishes, from a decode thread, so a journal keeps every
+    pair decoded before a failure.
     """
     num = len(pairs)
     if not num:
@@ -571,14 +570,16 @@ def align_pairs_conveyor(
         size_order = _size_order(genes, pairs)
         out_split: List[Tuple[int, str, str]] = [None] * num  # type: ignore
         for idxs in (size_order[0::2], size_order[1::2]):
+            sub_result = None
+            if on_result is not None:
+                def sub_result(si, triple, idxs=idxs):
+                    on_result(idxs[si], triple)
             sub = align_pairs_conveyor(
-                genes, [pairs[i] for i in idxs], pxy, pgap, device=device, config=config
+                genes, [pairs[i] for i in idxs], pxy, pgap, device=device, config=config,
+                on_result=sub_result,
             )
             for si, i in enumerate(idxs):
                 out_split[i] = sub[si]
-        if on_result is not None:
-            for idx in range(num):
-                on_result(idx, out_split[idx])
         return out_split
 
     table = torch.from_numpy(gene_table(genes)).to(device)
@@ -610,7 +611,10 @@ def align_pairs_conveyor(
         ax, ay = moves_to_alignment(genes[xi], genes[yi], pair_moves(words, counts, wplan, p))
         if wl.swapped[g]:  # a1 is always the alignment of genes[pairs[idx][0]]
             ax, ay = ay, ax
-        return int(score), ax, ay
+        triple = (int(score), ax, ay)
+        if on_result is not None:
+            on_result(wl.order[g], triple)
+        return triple
 
     out: List[Tuple[int, str, str]] = [None] * num  # type: ignore
     futures = []
@@ -629,18 +633,19 @@ def align_pairs_conveyor(
         for c0 in range(0, wl.max_chunks, n_seg):
             c1 = min(c0 + n_seg, wl.max_chunks)
             conveyor_fill(table, wl, pxy, pgap, c0, c1, state)
+            # The previous segment's walk runs beside this segment's fill;
+            # its pairs go to the decoders before the next walk is launched,
+            # so a failing launch loses none of them.
+            if pending is not None:
+                collect(pending)
+                pending = None
             first = taken
             while taken < num and (wl.pair_ready(ready[taken]) <= c1 or c1 == wl.max_chunks):
                 taken += 1
-            launched = launch_walk(ready[first:taken]) if taken > first else None
-            if pending is not None:
-                collect(pending)  # this segment and its walk are already enqueued
-            pending = launched
+            if taken > first:
+                pending = launch_walk(ready[first:taken])
         if pending is not None:
             collect(pending)
         for g, fut in futures:
             out[wl.order[g]] = fut.result()
-    if on_result is not None:
-        for idx in range(num):
-            on_result(idx, out[idx])
     return out

@@ -138,8 +138,7 @@ def walk(
         counts.data_ptr(), ctypes.c_void_p(stream),
     )
     _build.check("walk", err)
-    walk.launches += 1
-    walk.pairs += plan.num_pairs
+    _build.count(walk, plan.num_pairs)
     return moves, counts
 
 

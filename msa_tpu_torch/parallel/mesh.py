@@ -1,0 +1,66 @@
+"""The process's devices.
+
+Counterpart of ``msa_tpu/parallel/mesh.py::get_mesh`` and
+``jax.local_devices()``: the devices one process shards its device pairs
+over (``models/kway.py``) and its score-only fills (``parallel/engine.py``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Sequence
+
+import torch
+
+from msa_tpu_torch.config import TorchConfig
+
+
+def local_devices(config: TorchConfig) -> List[torch.device]:
+    """``cuda:0 .. count - 1``, at most ``config.local_devices`` of them (0: all).
+
+    ``[cpu]`` when ``config.device`` is "cpu", or is unset and there is no
+    card; the one device ``config.device`` names when it names an indexed
+    card. "cuda" with no card gives no device, never the CPU.
+    """
+    if config.device:
+        dev = torch.device(config.device)
+        if dev.type != "cuda" or dev.index is not None:
+            return [dev]
+    elif not torch.cuda.is_available():
+        return [torch.device("cpu")]
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(min(count, config.local_devices or count))]
+
+
+@contextlib.contextmanager
+def device_scope(dev: torch.device):
+    """Make ``dev`` the thread's card and give the thread a stream of its own.
+
+    Nothing to do for the CPU.
+    """
+    if dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev), torch.cuda.stream(torch.cuda.Stream(dev)):
+        yield
+
+
+def map_shards(fn, devices: Sequence[torch.device], shards: Sequence[Sequence]) -> Dict[int, Any]:
+    """Run ``fn(devices[d], shards[d])`` for each non-empty shard of tasks.
+
+    Each shard runs in a host thread of its own under ``device_scope``;
+    ``fn`` returns one result per task of its shard. Returns the results by
+    task id, whatever order the threads finish in.
+    """
+
+    def run(dev, shard):
+        with device_scope(dev):
+            return fn(dev, shard)
+
+    by_id: Dict[int, Any] = {}
+    with ThreadPoolExecutor(max_workers=max(1, len(shards))) as pool:
+        futures = [(shard, pool.submit(run, dev, shard)) for dev, shard in zip(devices, shards) if shard]
+        for shard, fut in futures:
+            by_id.update(zip((t.task_id for t in shard), fut.result()))
+    return by_id

@@ -190,7 +190,8 @@ def test_align_pairs_conveyor(conveyors):
     )
     for (i, j), res in zip(pairs, got):
         assert res == nw_align_numpy(genes[i], genes[j], 3, 2), (i, j)
-    assert seen == list(enumerate(got))
+    # Once per pair, as each decode finishes: in any order.
+    assert sorted(seen) == list(enumerate(got))
 
 
 def test_hbm_autosplit(monkeypatch):

@@ -99,3 +99,34 @@ def test_conveyor_pipeline_on_card_matches_oracle(card):
 def test_conveyor_rejects_too_wide_band(card):
     with pytest.raises(ValueError, match="one block"):
         cv.plan_sweeps(["A" * 10, "C" * 10], [(0, 1)], 8192, 1024, 1)
+
+
+@pytest.mark.parametrize("rb", [127, 1023])
+def test_score_only_fill_equals_plain_version(card, rb):
+    genes = _genes(rb + 1, [700, 520, 910])
+    pairs = [(1, 0), (2, 0), (2, 1), (0, 2)]
+    lengths = [len(g) for g in genes]
+    off = bf.plan_pairs(lengths, pairs, rb, 128, snaps=False)
+    table = torch.from_numpy(bf.gene_table(genes)).to(card)
+    got = bf.band_fill(table, off, 3, 2)
+    ref = bf.band_fill_ref(table, off, 3, 2)
+    full = bf.band_fill(table, bf.plan_pairs(lengths, pairs, rb, 128), 3, 2)
+    assert got.snaps.numel() == 0
+    assert torch.equal(got.score, ref.score) and torch.equal(got.rows, ref.rows)
+    assert torch.equal(got.score, full.score)
+    assert bf.nw_score(genes, pairs, 3, 2, device=card, rb=rb).tolist() == ref.score.tolist()
+
+
+def test_two_shards_on_one_card_match_oracle(card, monkeypatch):
+    from msa_tpu.utils.msaio import Problem
+    from msa_tpu_torch.models.kway import align_kway
+    from msa_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "local_devices", lambda config: [card, card])
+    genes = tuple(_genes(12, [1500, 1300, 900, 2000, 1100]))
+    problem = Problem(pxy=3, pgap=2, genes=genes)
+    for mode in ("banded", "conveyor"):
+        cfg = TorchConfig(rb=511, snap_k=256, rb_conveyor=512, host_threshold=0, fill_mode=mode)
+        got = align_kway(problem, config=cfg)
+        want = align_kway(problem, backend="numpy")
+        assert (got.chain_hash, got.penalties) == (want.chain_hash, want.penalties)

@@ -36,11 +36,12 @@ MSEQ1_PENALTIES = [
     5, 4, 9, 12, 14, 11, 11, 10, 11, 10, 20, 22, 16, 8, 15, 36, 38, 32,
     24, 28, 22, 31, 30, 27, 22, 20, 22, 20, 20, 22, 16, 8, 15, 0, 22, 22,
 ]
-# The jax-free modules of msa_tpu that the port may import.
+# The jax-free modules of msa_tpu that the port may import (utils.timing
+# imports jax only inside ``profile``, which the port does not call).
 ALLOWED_MSA_TPU = {
     "msa_tpu.utils.msaio", "msa_tpu.utils.hashing", "msa_tpu.utils.alignment",
-    "msa_tpu.utils.tasks", "msa_tpu.utils.checkpoint", "msa_tpu.ops.reference",
-    "msa_tpu.native",
+    "msa_tpu.utils.tasks", "msa_tpu.utils.checkpoint", "msa_tpu.utils.timing",
+    "msa_tpu.ops.reference", "msa_tpu.native",
 }
 
 
@@ -171,3 +172,21 @@ def test_port_imports_no_jax():
                 assert any(
                     name == a or name.startswith(a + ".") for a in ALLOWED_MSA_TPU
                 ), f"{path} imports {name}"
+
+
+def test_port_modules_leave_jax_unimported():
+    """Importing every module of the port, the engine's included, loads no jax."""
+    files = sorted((REPO / "msa_tpu_torch").rglob("*.py"))
+    rel = {str(p.relative_to(REPO)) for p in files}
+    assert {"msa_tpu_torch/parallel/engine.py", "msa_tpu_torch/parallel/costmodel.py",
+            "msa_tpu_torch/parallel/mesh.py", "msa_tpu_torch/ops/nw_torch.py",
+            "msa_tpu_torch/utils/timing.py", "msa_tpu_torch/utils/logging.py"} <= rel
+    modules = [
+        ".".join(p.relative_to(REPO).with_suffix("").parts[:-1] if p.name == "__init__.py"
+                 else p.relative_to(REPO).with_suffix("").parts)
+        for p in files
+    ]
+    code = "import sys\n" + "".join(f"import {m}\n" for m in modules) + (
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
