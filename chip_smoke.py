@@ -5,21 +5,26 @@
 Phases, each printed on its own line; any failure raises and exits nonzero:
 
 1. setup: CUDA, nvcc, the card's name and power limit; build the three
-   kernels from ``msa_tpu_torch/csrc`` (one nvcc per source, in parallel);
+   kernels from ``msa_tpu_torch/csrc`` (one nvcc per source, in parallel),
+   with ptxas's registers and spills for each;
 2. the fill kernel against ``band_fill_ref`` on the card, on three pairs of
    2,000-5,000 characters at rb = 1023 (several bands, several snapshots a
-   band) and on one pair at the main path's geometry (rb = 8191, 3 bands):
-   score, bottom rows and every snapshot entry that is a DP cell must be
-   equal as int32;
+   band) and on one pair at the main path's geometry: score, bottom rows
+   and every snapshot entry that is a DP cell must be equal as int32; then
+   the pipelined fill with snapshots on and off, every entry equal: 20 bands
+   of one pair (20,000 x 17,000 at rb 1023), more items than resident
+   blocks (300 pairs of 600-3,000 characters at rb 255), skew (70,000 x 6
+   and 6 x 70,000);
 3. the walk kernel against ``walk_ref`` on the same fill output: move words
    and counts equal, alignments equal to the native host oracle;
 4. big13 end to end through ``msa_tpu_torch.cli`` with ``--backend cuda``
    and ``fill_mode=banded``: the full golden chain hash and all 78
    penalties, both kernels launched, all 78 pairs on the device, twice; each
-   kernel alone on big13; then mseq1, which stays on the host, and the other
-   bundled datasets (permuted big13, and the two xulin sets against their
-   recorded host-oracle goldens in data/host_goldens.jsonl, skewed pairs
-   included);
+   kernel alone on big13; the band-height sweep (rb 1023, 2047, 4095, 8191:
+   fill and walk by events, scores golden); then mseq1, which stays on the
+   host, and the other bundled datasets (permuted big13, and the two xulin
+   sets against their recorded host-oracle goldens in
+   data/host_goldens.jsonl, skewed pairs included);
 5. the conveyor fill kernel against ``conveyor_fill_ref`` on the card, in
    four segments: (a) one sweep of many tenants at rb = 1024 (short and
    long pairs, both orientations of a skewed pair, so some are transposed),
@@ -31,7 +36,10 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    pair), then with 26 sweeps (three pairs each): golden hash and penalties,
    the conveyor fill and the walk launched, 78 conveyor pairs; each kernel
    alone on big13; the banded and conveyor times side by side; then the
-   permuted big13 and the xulin sets under ``fill_mode=conveyor``;
+   permuted big13 and the xulin sets under ``fill_mode=conveyor``; the
+   fill-mode A/B (banded, conveyor, conveyor, banded, banded, conveyor);
+   big13 under ``fill_mode=auto``, golden, through the fill it chooses;
+   each kernel's big13 time beside its bound, share of bound and launches;
 7. ``score_only_vs_plain``: the fill kernel with snapshots off on the
    phase-2 inputs, scores and rows equal to ``band_fill_ref`` with snapshots
    off and scores equal to the full fill's;
@@ -41,7 +49,8 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    cache, then read back from the cache;
 10. ``two_shards_one_card``: big13 through the CLI with the process's
    devices set to [cuda:0, cuda:0], so the k-way engine splits the device
-   pairs into two shards run by two host threads: the golden output;
+   pairs into two shards run by two host threads, under each fill mode: the
+   golden output;
 11. ``distributed``: two ``msa_tpu_torch.cli --distributed --backend cuda``
    processes on big13 (gloo on 127.0.0.1, both on this card): process 0
    prints the golden output, process 1 nothing, and their journals cover
@@ -50,8 +59,8 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    its recorded golden, the trace naming the fill and walk kernels;
 13. ``torch_backend``: ``--backend torch`` (the plain-torch sweep) on the
    card on mseq1;
-14. one JSON line of the kernels' launches, errors and times, then the last
-   line ``{"ok": true, "device": {...}}``.
+14. one JSON line of the kernels' launches, errors, times and bounds, then
+   the last line ``{"ok": true, "device": {...}}``.
 
 It needs the repository around it and a CUDA device, and exits nonzero
 without either.
@@ -110,13 +119,52 @@ def random_genes(rng, lengths):
     return ["".join(rng.choice(list("ACGT"), n)) for n in lengths]
 
 
+# The card's peaks (NVIDIA H100 SXM at 700 W): HBM bytes a second, and int32
+# operations a second on the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz,
+# half the float32 lanes behind the data sheet's 67 TFLOP/s (an FMA counted
+# as two).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations a DP cell needs: compare, select, min, add, min.
+OPS_PER_CELL = 5
+
+
+def bound(cells, nbytes):
+    """(bound_ms, bound_by): the larger of the operations' and the bytes' time."""
+    ops_ms = cells * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def seq_bytes(genes, pairs):
+    return sum(len(genes[i]) + len(genes[j]) for i, j in pairs)
+
+
+def fill_bound(genes, pairs, out_ints):
+    """The fill: every DP cell once; each pair's codes read, outputs written once."""
+    cells = sum(len(genes[i]) * len(genes[j]) for i, j in pairs)
+    return bound(cells, seq_bytes(genes, pairs) + 4 * out_ints)
+
+
+def walk_bound(genes, pairs, snap_k, window):
+    """The walk: a pair's path crosses about (m + n) / snap_k segments, each a
+    recompute of snap_k diagonals of ``window`` lanes from a 3-plane snapshot;
+    the moves are written at 2 bits each."""
+    span = sum(len(genes[i]) + len(genes[j]) for i, j in pairs)
+    return bound(span * window, seq_bytes(genes, pairs) + span / snap_k * 12 * window + span / 4)
+
+
+def band_fill_bound(genes, pairs, plan):
+    return fill_bound(genes, pairs, plan.num_pairs + plan.rows_len + plan.snaps_len)
+
+
 def check_case(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
     """Fill and walk kernels against their plain versions on one workload."""
     import numpy as np
     import torch
 
-    from msa_tpu.native import nw_align_native
-    from msa_tpu.utils.alignment import moves_to_alignment
+    from msa_tpu_torch.native import nw_align_native
+    from msa_tpu_torch.utils.alignment import moves_to_alignment
     from msa_tpu_torch.ops import band_fill as bf
     from msa_tpu_torch.ops import walk as wk
     from msa_tpu_torch.state import valid_snapshot_cells
@@ -161,7 +209,37 @@ def check_case(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
     phase("walk_vs_plain", case=name, moves=[int(c) for c in counts],
           max_abs_err=walk_err, alignments="equal to nw_align_native",
           ms=walk_ms, plain_ms=walk_plain_ms)
-    return {"fill": (fill_err, fill_ms, fill_plain_ms), "walk": (walk_err, walk_ms, walk_plain_ms)}
+    return {"fill": (fill_err, fill_ms, fill_plain_ms, band_fill_bound(genes, pairs, plan)),
+            "walk": (walk_err, walk_ms, walk_plain_ms,
+                     walk_bound(genes, pairs, snap_k, wk.window(wplan)))}
+
+
+def check_fill(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
+    """The fill kernel against ``band_fill_ref``, snapshots on and off: score,
+    rows and every snapshot entry equal as int32. The plain version runs once,
+    with snapshots: without them it computes the same score and rows."""
+    import torch
+
+    from msa_tpu_torch.ops import band_fill as bf
+
+    table = torch.from_numpy(bf.gene_table(genes)).cuda()
+    lengths = [len(g) for g in genes]
+    ref, plain_ms = host_ms(lambda: bf.band_fill_ref(
+        table, bf.plan_pairs(lengths, pairs, rb, snap_k), pxy, pgap))
+    for snaps in (True, False):
+        plan = bf.plan_pairs(lengths, pairs, rb, snap_k, snaps=snaps)
+        got = bf.band_fill(table, plan, pxy, pgap)
+        blocks = bf.band_fill.blocks
+        ms = cuda_ms(lambda: bf.band_fill(table, plan, pxy, pgap), reps=3)
+        outs = [(got.score, ref.score), (got.rows, ref.rows)] + [(got.snaps, ref.snaps)] * snaps
+        err = max((a - b).abs().max().item() for a, b in outs)
+        if err != 0:
+            raise AssertionError(f"{name}: fill kernel (snapshots {snaps}) differs from band_fill_ref by {err}")
+        phase("fill_vs_plain", case=name, snapshots=snaps, pairs=plan.num_pairs, rb=rb,
+              snap_k=snap_k, items=plan.num_items, blocks=blocks,
+              more_items_than_blocks=plan.num_items > blocks, max_abs_err=err,
+              all_entries_equal=True, ms=ms, plain_ms=plain_ms,
+              bound_ms=band_fill_bound(genes, pairs, plan)[0])
 
 
 def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=False,
@@ -173,8 +251,8 @@ def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=Fal
     import numpy as np
     import torch
 
-    from msa_tpu.native import nw_align_native
-    from msa_tpu.utils.alignment import moves_to_alignment
+    from msa_tpu_torch.native import nw_align_native
+    from msa_tpu_torch.utils.alignment import moves_to_alignment
     from msa_tpu_torch.ops import band_fill as bf
     from msa_tpu_torch.ops import conveyor as cv
     from msa_tpu_torch.ops import walk as wk
@@ -235,7 +313,8 @@ def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=Fal
     phase("conveyor_walk_vs_plain", case=name, moves=[int(c) for c in counts],
           max_abs_err=walk_err, alignments="swapped back, equal to nw_align_native",
           ms=walk_ms, plain_ms=walk_plain_ms)
-    return fill_err, fill_ms, fill_plain_ms
+    out_ints = got.score.numel() + got.brow.numel() + got.snaps.numel()
+    return fill_err, fill_ms, fill_plain_ms, fill_bound(genes, pairs, out_ints)
 
 
 @contextlib.contextmanager
@@ -372,30 +451,39 @@ def calibration(smi):
           cached_seconds=cached_seconds, kernel_version=costmodel.kernel_version(), card=smi)
 
 
-def two_shards_one_card(conveyor, smi):
-    """big13 with the device pairs split over [cuda:0, cuda:0]: two threads, two shards."""
+def two_shards_one_card(counted, smi):
+    """big13 with the device pairs split over [cuda:0, cuda:0]: two threads, two shards.
+
+    ``counted``: the kernels of each fill mode, by mode.
+    """
     import torch
 
+    from msa_tpu_torch.ops import batch
     from msa_tpu_torch.ops import conveyor as cv
     from msa_tpu_torch.parallel import mesh
 
-    shards = []
-    real_devices, real_align = mesh.local_devices, cv.align_pairs_conveyor
-
-    def spy(genes, pairs, *a, **kw):
-        shards.append(len(pairs))
-        return real_align(genes, pairs, *a, **kw)
-
-    mesh.local_devices = lambda config: [torch.device("cuda", 0)] * 2
-    cv.align_pairs_conveyor = spy
-    try:
-        seconds, launches, device_pairs = run_big13(conveyor)
-    finally:
-        mesh.local_devices, cv.align_pairs_conveyor = real_devices, real_align
-    if len(shards) != 2 or sum(shards) != 78 or min(launches.values()) < 2:
-        raise AssertionError(f"big13 was not split into two shards: {shards} {launches}")
-    phase("two_shards_one_card", hash=BIG13_HASH, shard_pairs=shards, seconds=seconds,
-          launches=launches, device_pairs=device_pairs, card=smi)
+    real_devices = mesh.local_devices
+    real = {batch: batch.align_pairs_batched, cv: cv.align_pairs_conveyor}
+    for mode, kernels in counted.items():
+        shards = []
+        spies = {}
+        for module, fn in real.items():
+            def spy(genes, pairs, *a, _fn=fn, **kw):
+                shards.append(len(pairs))
+                return _fn(genes, pairs, *a, **kw)
+            spies[module] = spy
+        mesh.local_devices = lambda config: [torch.device("cuda", 0)] * 2
+        batch.align_pairs_batched, cv.align_pairs_conveyor = spies[batch], spies[cv]
+        try:
+            with port_env(fill_mode=mode):
+                seconds, launches, device_pairs = run_big13(kernels)
+        finally:
+            mesh.local_devices = real_devices
+            batch.align_pairs_batched, cv.align_pairs_conveyor = real[batch], real[cv]
+        if len(shards) != 2 or sum(shards) != 78 or min(launches.values()) < 2:
+            raise AssertionError(f"big13 was not split into two shards: {shards} {launches}")
+        phase("two_shards_one_card", fill_mode=mode, hash=BIG13_HASH, shard_pairs=shards,
+              seconds=seconds, launches=launches, device_pairs=device_pairs, card=smi)
 
 
 def free_port() -> int:
@@ -406,6 +494,9 @@ def free_port() -> int:
 
 def distributed(smi):
     """big13 through two ``--distributed`` CLI processes on this one card."""
+    from msa_tpu_torch.config import TorchConfig
+    from msa_tpu_torch.models.kway import choose_fill_mode
+
     port = free_port()
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, MSA_TPU_TORCH_LOG="INFO", XDG_CACHE_HOME=tmp)
@@ -449,8 +540,9 @@ def distributed(smi):
     for _, err in outs:
         line = next(ln for ln in err.splitlines() if "msa_tpu_torch.engine: shard " in ln)
         shards.append(json.loads(line.split("shard ", 1)[1]))
+    fill = {"banded": "band_fill", "conveyor": "conveyor_fill"}[choose_fill_mode(TorchConfig())]
     for sh in shards:
-        if sh["launches"]["conveyor_fill"] < 1 or sh["launches"]["walk"] < 1:
+        if sh["launches"][fill] < 1 or sh["launches"]["walk"] < 1:
             raise AssertionError(f"process {sh['process']} did not run on the kernels: {sh}")
     phase("distributed", processes=2, hash=BIG13_HASH, seconds=seconds,
           pairs=[sh["pairs"] for sh in shards], policy=shards[0]["policy"],
@@ -511,6 +603,44 @@ def torch_backend(smi):
           seconds=seconds, card=smi)
 
 
+def rb_sweep(table, genes, pairs, problem, cfg, smi):
+    """The banded fill and its walk on big13 at each band height, by events."""
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import walk as wk
+
+    times = {}
+    for rb in (1023, 2047, 4095, 8191):
+        plan = bf.plan_pairs([len(g) for g in genes], pairs, rb, cfg.snap_k)
+        holder = {}
+
+        def fill_once():
+            holder["fill"] = bf.band_fill(table, plan, problem.pxy, problem.pgap)
+
+        fill_ms = cuda_ms(fill_once, reps=1)
+        if holder["fill"].score.tolist() != BIG13_PENALTIES:
+            raise AssertionError(f"big13 scores at rb {rb} differ from the golden penalties")
+        wplan = wk.banded_walk_plan(plan)
+        walk_ms = cuda_ms(lambda: wk.walk(table, wplan, holder["fill"].rows, holder["fill"].snaps,
+                                          problem.pxy, problem.pgap), reps=1)
+        del holder["fill"]
+        times[rb] = fill_ms + walk_ms
+        phase("big13_rb_sweep", rb=rb, fill_ms=fill_ms, walk_ms=walk_ms, items=plan.num_items,
+              blocks=bf.band_fill.blocks, snapshot_bytes=plan.snapshot_bytes, card=smi)
+    phase("big13_rb_choice", fastest_rb=min(times, key=times.get), config_rb=cfg.rb,
+          fill_plus_walk_ms=times, card=smi)
+
+
+def fill_mode_ab(banded, conveyor, smi):
+    """big13 end to end, banded and conveyor alternating, three runs each."""
+    seconds = {"banded": [], "conveyor": []}
+    for mode in ("banded", "conveyor", "conveyor", "banded", "banded", "conveyor"):
+        with port_env(fill_mode=mode):
+            s, _, _ = run_big13(banded if mode == "banded" else conveyor)
+        seconds[mode].append(s)
+    phase("big13_fill_mode_ab", seconds=seconds,
+          faster=min(seconds, key=lambda k: sorted(seconds[k])[1]), card=smi)
+
+
 def main() -> int:
     import torch
 
@@ -519,8 +649,9 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from msa_tpu.utils.msaio import parse_file
+    from msa_tpu_torch.utils.msaio import parse_file
     from msa_tpu_torch.config import TorchConfig
+    from msa_tpu_torch.models.kway import choose_fill_mode
     from msa_tpu_torch.ops import _build
     from msa_tpu_torch.ops import band_fill as bf
     from msa_tpu_torch.ops import conveyor as cv
@@ -549,6 +680,14 @@ def main() -> int:
     main_geom = random_genes(rng, [20000, 17000])
     cfg = TorchConfig()
     timed = check_case("main_geometry", main_geom, [(0, 1)], rb=cfg.rb, snap_k=cfg.snap_k)
+    # The pipelined fill: 20 bands a pair; more items than resident blocks;
+    # skewed pairs (one band of 70,000 steps; nine bands of 6 columns).
+    check_fill("twenty_bands", main_geom, [(0, 1)], rb=1023, snap_k=cfg.snap_k)
+    many = random_genes(rng, [int(v) for v in rng.integers(600, 3001, 25)])
+    check_fill("many_items", many, [(i, j) for i in range(1, 25) for j in range(i)],
+               rb=255, snap_k=cfg.snap_k)
+    check_fill("skew", random_genes(rng, [70000, 6]), [(0, 1), (1, 0)], rb=cfg.rb,
+               snap_k=cfg.snap_k)
 
     # 4. big13 end to end on the card, banded fill
     problem = parse_file("data/mseq-big13-example.txt")
@@ -581,8 +720,9 @@ def main() -> int:
                                       problem.pxy, problem.pgap), reps=1)
     del holder["fill"]
     phase("big13_kernels", fill_mode="banded", fill_ms=fill_ms, walk_ms=walk_ms,
-          fill_gcups=cells / fill_ms / 1e6,
+          fill_gcups=cells / fill_ms / 1e6, items=plan.num_items, blocks=bf.band_fill.blocks,
           rest_of_e2e_ms=min(runs) * 1e3 - fill_ms - walk_ms, card=smi)
+    rb_sweep(table, genes, pairs, problem, cfg, smi)
 
     lines, seconds = run_cli(["--backend", "cuda", "--input", "data/mseq1.dat"])
     if not lines[1].startswith(MSEQ1_HASH_PREFIX):
@@ -653,6 +793,35 @@ def main() -> int:
           conveyor26_seconds=[seconds26], banded_fill_ms=fill_ms, conveyor_fill_ms=conv_fill_ms,
           conveyor26_fill_ms=fill26_ms, card=smi)
     conformance("conveyor", cv.conveyor_fill)
+    fill_mode_ab(banded, conveyor, smi)
+    with port_env(fill_mode="auto"):
+        all_kernels = {"band_fill": bf.band_fill, "conveyor_fill": cv.conveyor_fill, "walk": wk.walk}
+        for fn in all_kernels.values():
+            fn.launches = fn.pairs = 0
+        lines, seconds = run_cli(["--backend", "cuda", "--input", "data/mseq-big13-example.txt"])
+        auto_launches = {name: fn.launches for name, fn in all_kernels.items()}
+    if lines[1] != BIG13_HASH or lines[2].split() != [str(p) for p in BIG13_PENALTIES]:
+        raise AssertionError("big13 under fill_mode=auto is not golden")
+    chosen = choose_fill_mode(TorchConfig(fill_mode="auto"))
+    fill_kernel = {"banded": "band_fill", "conveyor": "conveyor_fill"}[chosen]
+    if auto_launches[fill_kernel] < 1 or auto_launches["walk"] < 1:
+        raise AssertionError(f"fill_mode=auto did not run the {chosen} fill: {auto_launches}")
+    phase("big13_e2e", fill_mode="auto", chosen=chosen, hash=BIG13_HASH, seconds=[seconds],
+          launches=auto_launches, card=smi)
+
+    # Each kernel on big13 beside its bound (the larger of its int32
+    # operations at the card's peak and its bytes at HBM rate).
+    big13_bounds = {
+        "band_fill": (fill_ms, band_fill_bound(genes, pairs, plan), launches["band_fill"]),
+        "conveyor_fill": (conv_fill_ms, fill_bound(genes, pairs, wl.snaps_len + wl.brow_len + len(pairs)),
+                          conv_launches["conveyor_fill"]),
+        "walk": (conv_walk_ms, walk_bound(genes, pairs, cfg.snap_k, min(cfg.snap_k + 128, cfg.rb_conveyor + 1)),
+                 conv_launches["walk"]),
+    }
+    phase("big13_kernel_bounds", card=smi, kernels={
+        name: {"ms": ms, "bound_ms": b[0], "bound_by": b[1], "share_of_bound": b[0] / ms,
+               "big13_launches": n}
+        for name, (ms, b, n) in big13_bounds.items()})
 
     # 7-13. this slice: score-only fill, sharded scores, calibration, the
     # device split, two processes, the profiler, the torch backend
@@ -660,9 +829,9 @@ def main() -> int:
     check_score_only("main_geometry", main_geom, [(0, 1)], rb=cfg.rb, snap_k=cfg.snap_k)
     sharded_scores(problem, cells, smi)
     calibration(smi)
-    two_shards_one_card(conveyor, smi)
+    two_shards_one_card({"banded": banded, "conveyor": conveyor}, smi)
     distributed(smi)
-    batched_profile(conveyor, smi)
+    batched_profile(all_kernels, smi)
     torch_backend(smi)
 
     # 14. summary
@@ -675,10 +844,13 @@ def main() -> int:
                 "walk": (timed["walk"], conv_launches["walk"]),
                 "conveyor_fill": (conveyor_timed, conv_launches["conveyor_fill"])}
     kernels = []
-    for name, ((err, ms, plain_ms), count) in measured.items():
+    # ms, plain_ms and the bound on the same inputs (the main geometry
+    # cases); no single PyTorch call computes a fill or a traceback.
+    for name, ((err, ms, plain_ms, (bound_ms, bound_by)), count) in measured.items():
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1], "launches": count,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,127 @@
+"""What each part of the redesigned banded fill pays, on one NVIDIA card.
+
+    python3 fill_ablation.py
+
+Builds variants of ``msa_tpu_torch/csrc/band_fill.cu``, each the source with
+one part taken back out, and times each on big13's banded fill (rb 8191,
+snapshots on) by CUDA events, in turns (base, variants, variants reversed,
+base):
+
+- ``base``: the kernel as it is;
+- ``no_pipelining``: a band waits for its producer's whole bottom row
+  before its first step, so a pair's bands run one after another (on
+  whichever SMs take them), as in the one-block-per-pair fill before; the
+  difference to ``base`` is what the pipelining pays;
+- ``no_dpx``: ``min(p2s + sub, t2)`` written as plain min and add, not the
+  DPX ``__viaddmin_s32``;
+- ``chunk_256``: the base binary with 256-step chunks (waits, staging and
+  snapshots' boundaries four times as often; a band trails its producer by
+  rb + 256 steps, not rb + 1024).
+
+Every variant's scores must equal the golden penalties. Prints the card's
+name and power limit, ptxas's registers and spills and SASS counts for each
+variant, one JSON line per timing, and a summary line last. Needs the
+repository around it and a CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+BASE_NEED = "const int need = min(n, c1);"
+BASE_CELL = "int cur = __viaddmin_s32(dg, x[c] == y[c] ? 0 : pxy, t2);"
+PATCHES = {
+    "base": [],
+    "no_pipelining": [(BASE_NEED, "const int need = n;")],
+    "no_dpx": [(BASE_CELL, "int cur = min(dg + (x[c] == y[c] ? 0 : pxy), t2);")],
+}
+
+
+def build(name, patches):
+    """Compile one variant into build/ablation/<name>/; (library, ptxas and SASS lines)."""
+    from msa_tpu_torch.ops import _build
+
+    out_dir = os.path.join(_build.BUILD, "ablation", name)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(_build.CSRC, "band_fill.cu")) as f:
+        src = f.read()
+    for old, new in patches:
+        if src.count(old) != 1:
+            raise AssertionError(f"{name}: the patch anchor {old!r} is not in the source once")
+        src = src.replace(old, new)
+    cu = os.path.join(out_dir, "band_fill.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    lib = os.path.join(out_dir, "libband_fill.so")
+    nvcc = _build.nvcc_path()
+    log = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", lib, cu],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         check=True).stdout
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", lib],
+                          capture_output=True, text=True, check=True).stdout
+    info = {"ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
+            "sass": {op: sass.count(op) for op in ("VIADDMNMX", "IMNMX", "LDL", "STL", "BAR.SYNC")}}
+    handle = ctypes.CDLL(lib)
+    handle.band_fill.argtypes = _build.SIGNATURES["band_fill"]
+    handle.band_fill.restype = ctypes.c_int
+    return handle, info
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("fill_ablation: no CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import BIG13_PENALTIES, cuda_ms
+    from msa_tpu_torch.config import TorchConfig
+    from msa_tpu_torch.ops import _build
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.utils.msaio import parse_file
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    libs = {}
+    for name, patches in PATCHES.items():
+        libs[name], info = build(name, patches)
+        print(json.dumps({"variant": name, **info}), flush=True)
+
+    problem = parse_file("data/mseq-big13-example.txt")
+    genes = problem.genes
+    pairs = [(i, j) for i in range(1, len(genes)) for j in range(i)]
+    cfg = TorchConfig()
+    plan = bf.plan_pairs([len(g) for g in genes], pairs, cfg.rb, cfg.snap_k)
+    runs = {"base": plan, "no_pipelining": plan, "no_dpx": plan,
+            "chunk_256": bf.Plan(plan.params, plan.rb, plan.snap_k, plan.rows_len,
+                                 plan.snaps_len, plan.items, 256)}
+    table = torch.from_numpy(bf.gene_table(genes)).cuda()
+    order = ["base", "no_pipelining", "no_dpx", "chunk_256"]
+    times = {name: [] for name in order}
+    for name in order + order[::-1]:
+        # The wrapper launches whatever library is loaded under its name.
+        _build._LIBS["band_fill"] = libs[name if name in libs else "base"]
+        holder = {}
+
+        def fill():
+            holder["out"] = bf.band_fill(table, runs[name], problem.pxy, problem.pgap)
+
+        ms = cuda_ms(fill, reps=2)
+        if holder["out"].score.tolist() != BIG13_PENALTIES:
+            raise AssertionError(f"{name}: big13 scores differ from the golden penalties")
+        times[name].append(ms)
+        print(json.dumps({"variant": name, "big13_fill_ms": ms, "blocks": bf.band_fill.blocks,
+                          "card": smi}), flush=True)
+        del holder["out"]
+    print(json.dumps({"big13_fill_ms": times, "card": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

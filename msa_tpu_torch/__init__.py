@@ -13,12 +13,16 @@ beside it, which runs for tensors on the CPU.
 - ``models``   pairwise aligner and k-way engine (fill-mode routing, the
                LPT split of the device pairs over the process's devices);
 - ``parallel`` schedules, cost model, devices, the multi-process engine;
-- ``utils``    timing, tracing and logging;
+- ``utils``    I/O contract, hashing, alignment strings, tasks, journal,
+               timing, tracing and logging;
+- ``native``   the C++ host kernel (``csrc/host``), built with g++ at first use;
 - ``state``    the JAX fills' output in the port's layouts;
 - ``cli``      the reference's stdin/stdout contract.
 
-The port imports torch and never jax; of ``msa_tpu`` it uses only the
-jax-free modules (``utils``, ``ops/reference.py``, ``native``).
+The port imports torch and never jax, and nothing of the JAX package: it
+keeps its own copies of the host code it shares with it (``utils``,
+``ops/reference.py``, ``native``). Its entry points run on a card unless the
+caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 from msa_tpu_torch.models.pairwise import BACKENDS
 
@@ -60,9 +59,9 @@ def main(argv=None) -> int:
     )
     args = parser.parse_args(argv)
 
-    from msa_tpu.utils.msaio import format_output, parse_file, parse_input
+    from msa_tpu_torch.utils.msaio import format_output, parse_file, parse_input
     from msa_tpu_torch.config import TorchConfig
-    from msa_tpu_torch.utils.timing import profile
+    from msa_tpu_torch.utils.timing import profile, timestamp_us
 
     config = TorchConfig.from_env()
     if args.platform:
@@ -73,7 +72,7 @@ def main(argv=None) -> int:
         init_distributed(args.coordinator, args.num_processes, args.process_id)
     try:
         problem = parse_file(args.input) if args.input else parse_input(sys.stdin)
-        start = time.time_ns() // 1000
+        start = timestamp_us()
         with profile(args.profile_dir or config.profile_dir):
             if args.batched or args.distributed:
                 from msa_tpu_torch.parallel.engine import align_kway_sharded
@@ -87,7 +86,7 @@ def main(argv=None) -> int:
                 result = align_kway(
                     problem, backend=args.backend, checkpoint=args.checkpoint, config=config
                 )
-        elapsed = time.time_ns() // 1000 - start
+        elapsed = timestamp_us() - start
         from msa_tpu_torch.parallel.engine import process_group
 
         # Process 0 owns stdout, as the reference's rank 0 did.

@@ -25,6 +25,8 @@ MAX_RB = CELLS_PER_THREAD * MAX_THREADS - 1
 class TorchConfig:
     # Band height: rows of the DP swept together by one thread block. The
     # default fills a block: rb + 1 = 8192 lanes = 1024 threads x 8 cells.
+    # On an H100 it was the fastest of rb 1023, 2047, 4095 and 8191 for
+    # big13's banded fill and walk together (chip_smoke.py's rb sweep, PERF.md).
     rb: int = MAX_RB
     # Snapshot stride of the fill == segment length of the walk (one knob,
     # as in msa_tpu.config.snap_k).
@@ -36,8 +38,9 @@ class TorchConfig:
     # "cpu" runs the pipeline through the kernels' plain versions.
     device: str = ""
     # Fill of the device pairs: "conveyor" (ops/conveyor.py: the bands of
-    # many pairs staggered through one sweep), "banded" (ops/batch.py: one
-    # block per pair) or "auto" (models/kway.py::choose_fill_mode).
+    # many pairs staggered through one sweep), "banded" (ops/batch.py: each
+    # band of each pair a work item, band after band across SMs) or "auto"
+    # (models/kway.py::choose_fill_mode: banded).
     fill_mode: str = "auto"
     # Conveyor band height: a multiple of snap_k (band starts and snapshots
     # stay K-aligned), and rb_conveyor + 1 lanes must fit one block (8,192).

@@ -1,4 +1,5 @@
-// Banded Needleman-Wunsch fill for many pairs in one launch.
+// Banded Needleman-Wunsch fill for many pairs in one launch, with the bands
+// of a pair pipelined across SMs.
 //
 // Replaces msa_tpu/ops/pallas_nw.py::_band_sweep_call (kernel :99,
 // pallas_call :293). Per pair it computes the score dp[m][n], the bottom row
@@ -8,110 +9,272 @@
 // score-only mode: nw_score, calibration; emit_snaps=False in the Pallas
 // kernel) no snapshot is written; rows stay, as they carry each band's bottom
 // row to the next band. The mode is a template flag, not a test in the step
-// loop: a runtime null check there made the full mode's fill 10 % slower on
-// an H100 (big13 at rb 8191: 1,548 ms -> 1,699 ms).
+// loop (a runtime test there cost the full fill 10 % on an H100).
 //
 // Layout (all int32, offsets per pair from the parameter table):
 //   rows  [pair][band < nb - 1][n]
 //   snaps [pair][band][s < S][3][rb + 1]
 //
-// What bounds it on an H100: each step updates rb + 1 cells and then waits at
-// one __syncthreads, because every lane needs its upper neighbour's value
-// from the step before. A step is a few hundred cycles of dependent integer
-// work and a barrier, so the kernel is latency-bound per step, not bound by
-// memory. The design answers with width: one block per pair (78 pairs of
-// big13 run side by side on 132 SMs), the band as wide as a block can hold
-// in registers (1024 threads x 8 cells), a single barrier per step (the
-// boundary values are double-buffered in shared memory), and no global
-// traffic in the step except the one harvested bottom-row cell and a
-// snapshot every snap_k steps. The TPU's sequential band grid becomes a loop
-// inside the block; band b reads band b - 1's bottom row from global memory.
+// What bounds it on an H100: the recurrence is a handful of int32
+// operations a cell (compare, select, min, add-min), so the fill is bound by
+// the SMs' integer issue rate, not by memory. Two things kept it far from
+// that bound when one block carried a pair's bands in order: the fill lasted
+// as long as the longest pair's chain of bands, on one SM, while most SMs
+// idled; and each cell paid for border, harvest and score tests in the step.
+//
+// The design:
+// - Work items. Every (pair, band) is one item; the host orders them by
+//   ticket (ops/band_fill.py::plan_pairs), each band after its producer
+//   (band b - 1 of the same pair). A persistent grid of SM count x resident
+//   blocks per SM takes tickets with one atomicAdd each, runs the band and
+//   takes another.
+// - Band b + 1 follows band b through global memory. The thread that
+//   harvests band b's bottom row into ``rows`` publishes how many columns it
+//   has written, with a release store at device scope, at the end of every
+//   chunk of steps. Band b + 1's thread 0 waits for the columns of its next
+//   chunk with an acquire load and __nanosleep backoff, once per chunk,
+//   outside the step loop; the block then reads them (through L2, __ldcg).
+//   A band trails its producer by about rb + one chunk of steps, so a pair's
+//   bands run side by side on several SMs.
+// - Deadlock freedom, whatever the grid: a block claims a ticket only while
+//   it is running and works on it until done, and an item's producer has a
+//   smaller ticket, so it was claimed before, by a block that is running or
+//   done. By induction on the ticket every claimed item finishes: band 0
+//   waits for nothing, and a running band waits only for a running or
+//   finished producer. Two launches at once (two host threads on one card)
+//   have their own ticket counters and progress tables.
+// - A cheap step. Steps run in chunks of ``chunk`` diagonals (a divisor of
+//   snap_k): the wait, the top row's values, the y codes of the chunk
+//   (staged in shared memory with sentinels, so no bounds test in the step)
+//   and the snapshot sit at the chunk boundary, with no % in the step. The
+//   ramp-in steps (dl <= rb, the left border enters lane dl) run in a loop of
+//   their own; the steady loop has no per-cell border, harvest or score
+//   test: the top lane is one uniform branch of thread 0, the harvest one of
+//   the thread that holds lane rb, the score is read after the last step.
+//   A cell is min(p2s + sub, min(p1, p1s) + pgap) with the DPX add-min
+//   (__viaddmin_s32). Steps go in pairs, with the two diagonals' register
+//   arrays trading roles, so no per-cell copy moves the state along.
+//
+// Each thread owns CELLS consecutive lanes (common.cuh); lane q of the band
+// is row i0 + q and holds cell (i0 + q, dl - q) on local diagonal dl. Only
+// the last lane's value crosses threads, through a double-buffered shared
+// array: one __syncthreads a step.
 
 #include "common.cuh"
+
+// Longest chunk of steps (ops/band_fill.py keeps the same value).
+#define CHUNK_MAX 1024
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Picks v[c] for a c known only at run time, without indexing the array
+// (which would move it to local memory).
+__device__ __forceinline__ int pick(const int (&v)[CELLS], int c) {
+  int r = v[0];
+#pragma unroll
+  for (int k = 1; k < CELLS; ++k) r = c == k ? v[k] : r;
+  return r;
+}
+
+// Local diagonal dl of this thread's lanes from a (diagonal dl - 1) and b
+// (dl - 2), written into b; x, y: the lanes' codes; e1, e2: the previous
+// thread's last lane on dl - 1 and dl - 2 (NEG_FILL for thread 0). Then the
+// hand-off: the last lane to the next thread through sh_p1, one barrier.
+template <bool kRamp>
+__device__ __forceinline__ void step(const int (&x)[CELLS], int (&y)[CELLS],
+                                     const int (&a)[CELLS], int (&b)[CELLS], int& e1,
+                                     int& e2, int& buf, int (*sh_p1)[MAX_THREADS],
+                                     int ny, int topv, int* harvest, int hc, int tid,
+                                     int q0, int dl, int inj, int pxy, int pgap) {
+#pragma unroll
+  for (int c = CELLS - 1; c > 0; --c) y[c] = y[c - 1];
+  y[0] = ny;
+  // Descending, so b[c - 1] still holds diagonal dl - 2 when lane c reads it.
+#pragma unroll
+  for (int c = CELLS - 1; c >= 0; --c) {
+    const int up = c ? a[c - 1] : e1;
+    const int dg = c ? b[c - 1] : e2;
+    const int t2 = min(up, a[c]) + pgap;
+    int cur = __viaddmin_s32(dg, x[c] == y[c] ? 0 : pxy, t2);
+    if (kRamp && q0 + c == dl) cur = inj;  // left border dp[i0 + dl][0]
+    b[c] = cur;
+  }
+  if (tid == 0) b[0] = topv;
+  if (!kRamp && harvest) *harvest = pick(b, hc);
+  buf ^= 1;
+  sh_p1[buf][tid] = b[CELLS - 1];
+  __syncthreads();
+  e2 = e1;
+  e1 = sh_p1[buf][tid ? tid - 1 : 0];
+  if (tid == 0) e1 = NEG_FILL;
+}
 
 template <bool kSnaps>
 __global__ void __launch_bounds__(MAX_THREADS)
 band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
-                 const long long* __restrict__ params, int rb, int snap_k,
-                 int pxy, int pgap, int* __restrict__ score,
-                 int* __restrict__ rows, int* __restrict__ snaps) {
+                 const long long* __restrict__ params, const int* __restrict__ items,
+                 int num_items, int rb, int snap_k, int chunk, int pxy, int pgap,
+                 int* __restrict__ score, int* rows, int* __restrict__ snaps,
+                 int* progress, int* tickets) {
+  extern __shared__ int smem[];
   __shared__ int sh_p1[2][MAX_THREADS];
-  __shared__ int sh_yd[2][MAX_THREADS];
-  const long long* pp = params + (long long)blockIdx.x * NCOL;
-  const int m = (int)pp[P_M];
-  const int n = (int)pp[P_N];
-  const int nb = (int)pp[P_NB];
-  const int S = (int)pp[P_S];
-  const int lanes = rb + 1;
+  __shared__ int sh_item;
+  int* sh_top = smem;                                   // [chunk]
+  short* sh_y = reinterpret_cast<short*>(smem + chunk);  // [chunk + q0max]
   const int tid = threadIdx.x;
   const int q0 = tid * CELLS;
-  int* rows_p = rows + pp[P_ROWS_OFF];
+  const int q0max = (blockDim.x - 1) * CELLS;
+  const int lanes = rb + 1;
+  const int per_snap = snap_k / chunk;
+  const int hc = rb % CELLS;
+  int buf = 0;
 
-  Band B;
-  B.x = genes + pp[P_XG] * stride;
-  B.y = genes + pp[P_YG] * stride;
-  B.n = n;
-  B.pgap = pgap;
-
-  for (int b = 0; b < nb; ++b) {
-    B.i0 = b * rb;
-    B.rows = min(rb, m - B.i0);
-    B.top = b ? rows_p : nullptr;
-    B.top_base = (long long)(b - 1) * n - 1;
-    const int steps = B.rows + n;
-    int* snap_b = snaps + pp[P_SNAP_OFF] + (long long)b * S * 3 * lanes;
-    int* harvest = (b < nb - 1) ? rows_p + (long long)b * n : nullptr;
+  for (;;) {
+    if (tid == 0) sh_item = atomicAdd(tickets, 1);
+    __syncthreads();
+    const int it = sh_item;
+    __syncthreads();
+    if (it >= num_items) return;
+    const int p = items[3 * it], b = items[3 * it + 1], slot = items[3 * it + 2];
+    const long long* pp = params + (long long)p * NCOL;
+    const int m = (int)pp[P_M], n = (int)pp[P_N], nb = (int)pp[P_NB];
+    const unsigned char* xs = genes + pp[P_XG] * stride;
+    const unsigned char* ys = genes + pp[P_YG] * stride;
+    int* rows_p = rows + pp[P_ROWS_OFF];
+    const int i0 = b * rb;
+    const int nrows = min(rb, m - i0);
+    const int nsteps = nrows + n;
+    const int* top = b ? rows_p + (long long)(b - 1) * n : nullptr;
+    // The thread that holds lane rb writes the bottom row (column j at j - 1).
+    int* harvest = (b < nb - 1 && tid == rb / CELLS) ? rows_p + (long long)b * n - rb - 1
+                                                     : nullptr;
+    int* snap_b = kSnaps ? snaps + pp[P_SNAP_OFF] + (long long)b * pp[P_S] * 3 * lanes
+                         : nullptr;
 
     // State entering step 1: lane 0 holds dp[i0][0] = i0 * pgap.
-    Lanes L;
+    int x[CELLS], y[CELLS], d1[CELLS], d2[CELLS];
 #pragma unroll
     for (int c = 0; c < CELLS; ++c) {
       const int q = q0 + c;
-      L.x[c] = xcode(B, q);
-      L.yd[c] = Y_SENTINEL;
-      L.p1[c] = q == 0 ? B.i0 * pgap : NEG_FILL;
-      L.p1s[c] = q == 1 ? B.i0 * pgap : NEG_FILL;
-      L.p2s[c] = NEG_FILL;
+      x[c] = (q >= 1 && q <= nrows) ? (int)xs[i0 + q - 1] : X_SENTINEL;
+      y[c] = Y_SENTINEL;
+      d1[c] = q == 0 ? i0 * pgap : NEG_FILL;
+      d2[c] = NEG_FILL;
     }
-    if (kSnaps) write_snapshot(snap_b, L, q0, lanes);
-    sh_yd[0][tid] = L.yd[CELLS - 1];
-    __syncthreads();
+    int e1 = NEG_FILL, e2 = NEG_FILL;
 
-    int buf = 0;
-    for (int dl = 1; dl <= steps; ++dl) {
-      const int ny = tid ? sh_yd[buf][tid - 1] : ycode(B, dl - 1);
-      const int topv = tid ? 0 : top_value(B, dl);
-      step_cells(L, q0, ny, topv, dl, (B.i0 + dl) * pgap, pxy, pgap,
-                 [&](int, int q, int cur, bool, int, int, int, int) {
-                   if (q == rb && harvest && dl > rb) harvest[dl - rb - 1] = cur;
-                   if (q == B.rows && dl == steps && b == nb - 1)
-                     score[blockIdx.x] = cur;
-                 });
-      sh_p1[buf ^ 1][tid] = L.p1[CELLS - 1];
-      sh_yd[buf ^ 1][tid] = L.yd[CELLS - 1];
+    for (int c0 = 0, ci = 0; c0 < nsteps; c0 += chunk, ++ci) {
+      const int c1 = min(c0 + chunk, nsteps);  // this chunk: steps c0 + 1 .. c1
+      if (top && tid == 0) {
+        const int need = min(n, c1);
+        unsigned ns = 32;
+        while (ld_acquire(progress + slot - 1) < need) {
+          __nanosleep(ns);
+          ns = min(2 * ns, 1024u);
+        }
+      }
       __syncthreads();
-      buf ^= 1;
-      L.p1s[0] = tid ? sh_p1[buf][tid - 1] : NEG_FILL;
-      if (kSnaps && dl % snap_k == 0 && dl < steps)
-        write_snapshot(snap_b + (long long)(dl / snap_k) * 3 * lanes, L, q0,
-                       lanes);
+      for (int k = tid; k < c1 - c0; k += blockDim.x) {
+        const int dl = c0 + 1 + k;
+        sh_top[k] = dl > n ? NEG_FILL : top ? __ldcg(top + dl - 1) : dl * pgap;
+      }
+      for (int k = tid; k < c1 - c0 + q0max; k += blockDim.x) {
+        const int g = c0 - q0max + k;
+        sh_y[k] = (g >= 0 && g < n) ? (short)ys[g] : (short)Y_SENTINEL;
+      }
+      __syncthreads();
+      if (kSnaps && ci % per_snap == 0) {
+        int* snap = snap_b + (long long)(ci / per_snap) * 3 * lanes;
+#pragma unroll
+        for (int c = 0; c < CELLS; ++c) {
+          const int q = q0 + c;
+          if (q < lanes) {
+            snap[q] = d1[c];
+            snap[lanes + q] = c ? d1[c - 1] : e1;
+            snap[2 * lanes + q] = c ? d2[c - 1] : e2;
+          }
+        }
+      }
+      // Lane q0 on diagonal dl reads y[dl - q0 - 1] = ysh[dl]; thread 0
+      // takes dp[i0][dl] = topsh[dl].
+      const short* ysh = sh_y + q0max - q0 - 1 - c0;
+      const int* topsh = sh_top - c0 - 1;
+      // Ramp-in (dl <= rb: the left border enters lane dl), in pairs of
+      // steps with the two diagonals trading roles.
+      int dl = c0 + 1;
+      const int ramp_hi = min(c1, rb);
+      for (; dl < ramp_hi; dl += 2) {
+        step<true>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl], nullptr, hc, tid,
+                   q0, dl, (i0 + dl) * pgap, pxy, pgap);
+        step<true>(x, y, d2, d1, e1, e2, buf, sh_p1, ysh[dl + 1], topsh[dl + 1], nullptr,
+                   hc, tid, q0, dl + 1, (i0 + dl + 1) * pgap, pxy, pgap);
+      }
+      if (dl == ramp_hi) {
+        step<true>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl], nullptr, hc, tid,
+                   q0, dl, (i0 + dl) * pgap, pxy, pgap);
+#pragma unroll
+        for (int c = 0; c < CELLS; ++c) {
+          const int t = d1[c];
+          d1[c] = d2[c];
+          d2[c] = t;
+        }
+        ++dl;
+      }
+      // The steady steps: no per-cell test.
+      for (; dl < c1; dl += 2) {
+        step<false>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl],
+                    harvest ? harvest + dl : nullptr, hc, tid, q0, dl, 0, pxy, pgap);
+        step<false>(x, y, d2, d1, e1, e2, buf, sh_p1, ysh[dl + 1], topsh[dl + 1],
+                    harvest ? harvest + dl + 1 : nullptr, hc, tid, q0, dl + 1, 0, pxy, pgap);
+      }
+      if (dl == c1) {
+        step<false>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl],
+                    harvest ? harvest + dl : nullptr, hc, tid, q0, dl, 0, pxy, pgap);
+#pragma unroll
+        for (int c = 0; c < CELLS; ++c) {
+          const int t = d1[c];
+          d1[c] = d2[c];
+          d2[c] = t;
+        }
+      }
+      if (harvest && c1 > rb) st_release(progress + slot, min(n, c1 - rb));
     }
-    // The next band reads this band's harvested row from global memory.
-    __syncthreads();
+    if (b == nb - 1 && nrows >= q0 && nrows < q0 + CELLS) score[p] = pick(d1, nrows - q0);
   }
 }
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue when
-// rb + 1 lanes do not fit one block). snaps may be null: no snapshots.
-extern "C" int band_fill(const void* genes, long long stride,
-                         const void* params, int num_pairs, int rb, int snap_k,
-                         int pxy, int pgap, void* score, void* rows,
-                         void* snaps, void* stream) {
+// rb + 1 lanes do not fit one block or the chunk does not divide snap_k).
+// snaps may be null: no snapshots. progress (one int per band of the
+// workload) and tickets (one int) must be zero. *blocks receives the grid.
+extern "C" int band_fill(const void* genes, long long stride, const void* params,
+                         const void* items, int num_items, int rb, int snap_k, int chunk,
+                         int pxy, int pgap, void* score, void* rows, void* snaps,
+                         void* progress, void* tickets, int* blocks, void* stream) {
   const int threads = threads_for(rb + 1);
-  if (threads == 0 || num_pairs <= 0 || snap_k <= 0) return cudaErrorInvalidValue;
+  if (threads == 0 || num_items <= 0 || chunk <= 0 || chunk > CHUNK_MAX ||
+      (snaps && (snap_k <= 0 || snap_k % chunk != 0)))
+    return cudaErrorInvalidValue;
   auto kernel = snaps ? band_fill_kernel<true> : band_fill_kernel<false>;
-  kernel<<<num_pairs, threads, 0, (cudaStream_t)stream>>>(
-      (const unsigned char*)genes, stride, (const long long*)params, rb,
-      snap_k, pxy, pgap, (int*)score, (int*)rows, (int*)snaps);
+  const size_t smem = chunk * sizeof(int) + (chunk + (threads - 1) * CELLS) * sizeof(short);
+  int dev, sms, per_sm;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = min(num_items, sms * per_sm);
+  kernel<<<*blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const unsigned char*)genes, stride, (const long long*)params, (const int*)items,
+      num_items, rb, snap_k, chunk, pxy, pgap, (int*)score, (int*)rows, (int*)snaps,
+      (int*)progress, (int*)tickets);
   return (int)cudaGetLastError();
 }

@@ -15,31 +15,31 @@ import dataclasses
 import threading
 from typing import List, Optional, Sequence
 
-from msa_tpu.utils.hashing import chain_hashes, pair_hash
-from msa_tpu.utils.msaio import Problem
-from msa_tpu.utils.tasks import pair_task_list
+from msa_tpu_torch.utils.hashing import chain_hashes, pair_hash
+from msa_tpu_torch.utils.msaio import Problem
+from msa_tpu_torch.utils.tasks import pair_task_list
 from msa_tpu_torch.config import TorchConfig
 from msa_tpu_torch.models.pairwise import PairResult, PairwiseAligner
 
 FILL_MODES = ("auto", "banded", "conveyor")
-# Device pairs from which fill_mode "auto" takes the conveyor
-# (msa_tpu/models/kway.py:59).
-_CONVEYOR_MIN_PAIRS = 3
 
 
-def choose_fill_mode(config: TorchConfig, num_device_pairs: int) -> str:
+def choose_fill_mode(config: TorchConfig) -> str:
     """The fill of the device pairs: ``config.fill_mode`` unless "auto".
 
-    "auto" keeps the JAX package's rule (msa_tpu/models/kway.py:28-59):
-    the conveyor from _CONVEYOR_MIN_PAIRS device pairs, the banded fill
-    below. On an H100 the conveyor ran big13 no slower than the banded fill
-    (1.73-1.76 s against 1.82-1.85 s, five alternating runs each, PERF.md).
+    "auto" takes the banded fill, the faster one on an H100 ("NVIDIA H100
+    80GB HBM3, 700.00 W"): big13 end to end, alternating banded, conveyor,
+    conveyor, banded, banded, conveyor in one call of ``chip_smoke.py``,
+    took 0.38-0.46 s banded and 1.73-1.74 s conveyor; the fills alone
+    138.7 ms and 1,585.6 ms (PERF.md). The JAX package's rule (the conveyor
+    from 3 device pairs, msa_tpu/models/kway.py:28-59) fits one TPU
+    TensorCore's lane space, and held on the H100 only while one block
+    carried a pair's bands in order (conveyor 1.73-1.76 s, banded
+    1.82-1.85 s).
     """
     if config.fill_mode not in FILL_MODES:
         raise ValueError(f"unknown fill_mode {config.fill_mode!r}; expected one of {FILL_MODES}")
-    if config.fill_mode != "auto":
-        return config.fill_mode
-    return "conveyor" if num_device_pairs >= _CONVEYOR_MIN_PAIRS else "banded"
+    return "banded" if config.fill_mode == "auto" else config.fill_mode
 
 
 @dataclasses.dataclass
@@ -62,7 +62,7 @@ class KWayAligner:
         results: dict = {}
         journal = None
         if checkpoint:
-            from msa_tpu.utils.checkpoint import PairJournal, problem_key
+            from msa_tpu_torch.utils.checkpoint import PairJournal, problem_key
 
             journal = PairJournal(checkpoint, problem_key(pw.pxy, pw.pgap, genes))
             done = journal.load()
@@ -106,8 +106,7 @@ class KWayAligner:
         split by LPT (cost m * n, ties by task id) over the process's devices
         (``parallel/mesh.py::local_devices``), each shard at least two pairs,
         and every device runs the whole fill + walk pipeline in a host thread
-        of its own, under ``torch.cuda.device`` and a stream of its own. The
-        fill mode is chosen per shard by its pair count.
+        of its own, under ``torch.cuda.device`` and a stream of its own.
         ``on_task_result(task, triple)`` fires as each pair decodes, from any
         thread.
         """
@@ -123,7 +122,7 @@ class KWayAligner:
                     on_task_result(shard[idx], triple)
 
             pairs = [(t.i, t.j) for t in shard]
-            if choose_fill_mode(pw.config, len(pairs)) == "conveyor":
+            if choose_fill_mode(pw.config) == "conveyor":
                 from msa_tpu_torch.ops.conveyor import align_pairs_conveyor
 
                 return align_pairs_conveyor(

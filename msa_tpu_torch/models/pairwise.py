@@ -2,18 +2,19 @@
 
 Port of ``msa_tpu/models/pairwise.py``. Backends:
 
-- ``numpy``  the host oracle (``msa_tpu.ops.reference``);
-- ``native`` the C++ host kernel (``msa_tpu.native``);
+- ``numpy``  the host oracle (``ops/reference.py``);
+- ``native`` the C++ host kernel (``native.py``);
 - ``torch``  the anti-diagonal sweep in plain torch ops (``ops/nw_torch.py``,
              the counterpart of the JAX package's ``jax`` backend) for every
-             pair, on ``config.device`` or a card when one is present;
+             pair, on ``config.device`` or else the card;
 - ``cuda``   the device pipeline (conveyor or banded fill, walk) on a card;
-             raises when there is none;
-- ``auto``   the device pipeline on ``config.device`` (or a card, when one
-             is present), else the native host kernel.
+- ``auto``   the device pipeline on ``config.device`` or else the card.
 
-With ``cuda`` or ``auto``, pairs under ``config.host_threshold`` DP cells
-stay on the host, as in the JAX package (pairwise.py:54-63).
+Without a card, ``torch``, ``cuda`` and ``auto`` raise unless the caller
+asks for the CPU (``config.device = "cpu"``: ``--platform cpu`` or
+``MSA_TPU_TORCH_DEVICE=cpu``); there the pipeline runs the kernels' plain
+versions. With ``cuda`` or ``auto``, pairs under ``config.host_threshold``
+DP cells stay on the host, as in the JAX package (pairwise.py:54-63).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from msa_tpu.utils.hashing import pair_hash
+from msa_tpu_torch.utils.hashing import pair_hash
 from msa_tpu_torch.config import TorchConfig
 
 BACKENDS = ("numpy", "native", "torch", "cuda", "auto")
@@ -42,7 +43,7 @@ def pipeline_device(backend: str, config: TorchConfig) -> Optional[torch.device]
     """The torch device pairs run on, or None for host-only backends.
 
     For ``torch`` that is the sweep's device; for the others the device
-    pipeline's.
+    pipeline's. Raises without a card unless ``config.device`` names one.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
@@ -59,15 +60,19 @@ def pipeline_device(backend: str, config: TorchConfig) -> Optional[torch.device]
         return torch.device(config.device)
     if torch.cuda.is_available():
         return torch.device("cuda")
-    return torch.device("cpu") if backend == "torch" else None
+    raise RuntimeError(
+        f"backend {backend!r} runs on a CUDA device and none is available; to run on"
+        " the CPU, ask for it: --platform cpu, MSA_TPU_TORCH_DEVICE=cpu, or a host"
+        " backend (--backend numpy or native)"
+    )
 
 
 def align_host(x: str, y: str, pxy: int, pgap: int, backend: str) -> Tuple[int, str, str]:
     if backend == "numpy":
-        from msa_tpu.ops.reference import nw_align_numpy
+        from msa_tpu_torch.ops.reference import nw_align_numpy
 
         return nw_align_numpy(x, y, pxy, pgap)
-    from msa_tpu.native import nw_align_native
+    from msa_tpu_torch.native import nw_align_native
 
     return nw_align_native(x, y, pxy, pgap)
 

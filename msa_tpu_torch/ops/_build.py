@@ -32,9 +32,9 @@ NVCC_FLAGS = [
 
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    # band_fill(genes, stride, params, num_pairs, rb, snap_k, pxy, pgap,
-    #           score, rows, snaps, stream)
-    "band_fill": [P, LL, P, I, I, I, I, I, P, P, P, P],
+    # band_fill(genes, stride, params, items, num_items, rb, snap_k, chunk,
+    #           pxy, pgap, score, rows, snaps, progress, tickets, blocks, stream)
+    "band_fill": [P, LL, P, P, I, I, I, I, I, I, P, P, P, P, P, ctypes.POINTER(I), P],
     # walk(genes, stride, params, bands, num_pairs, rb, snap_k, pxy, pgap,
     #      rows, snaps, dirs, moves, counts, stream)
     "walk": [P, LL, P, P, I, I, I, I, I, P, P, P, P, P, P],

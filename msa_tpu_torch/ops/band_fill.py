@@ -21,6 +21,14 @@ A plan made with ``snaps=False`` has no snapshots (``snaps_len`` = 0): the
 score-only mode of ``emit_snaps=False``, which ``nw_score`` runs (port of
 ``msa_tpu/ops/pallas_nw.py::nw_score_pallas``).
 
+The kernel runs every (pair, band) as a work item on a persistent grid, band
+b following band b - 1 through ``rows`` (``csrc/band_fill.cu``). The plan's
+item table gives the ticket order: each row is (pair, band, progress slot),
+the slot being the band's index among all the bands of the call, and every
+band comes after its producer, band b - 1 of the same pair. The longest
+remaining pipelined chain goes first: (nb - 1 - b) * (rb + chunk) steps of
+lag behind the band, plus the last band's rows + n steps.
+
 ``band_fill`` launches ``csrc/band_fill.cu`` for CUDA tensors and runs
 ``band_fill_ref`` for CPU tensors; any other device raises.
 """
@@ -43,6 +51,18 @@ Y_SENTINEL = -2
 # Columns of the parameter table (csrc/common.cuh keeps the same order).
 P_M, P_N, P_XG, P_YG, P_NB, P_S, P_SNAP_OFF, P_ROWS_OFF = range(8)
 NCOL = 8
+# Longest chunk of steps between two waits of a band for its producer
+# (csrc/band_fill.cu, CHUNK_MAX).
+CHUNK_MAX = 1024
+
+
+def chunk_steps(snap_k: int, snaps: bool) -> int:
+    """Steps of the kernel's chunk: the largest divisor of snap_k up to
+    CHUNK_MAX, so that every snapshot falls on a chunk boundary; CHUNK_MAX
+    when there are no snapshots."""
+    if not snaps:
+        return CHUNK_MAX
+    return max(d for d in range(1, min(snap_k, CHUNK_MAX) + 1) if snap_k % d == 0)
 
 
 @dataclasses.dataclass
@@ -54,10 +74,17 @@ class Plan:
     snap_k: int
     rows_len: int
     snaps_len: int
+    items: np.ndarray  # (total bands, 3) int32, in ticket order
+    chunk: int  # steps between two waits for the producer band
 
     @property
     def num_pairs(self) -> int:
         return int(self.params.shape[0])
+
+    @property
+    def num_items(self) -> int:
+        """Work items of the kernel: every band of every pair."""
+        return int(self.items.shape[0])
 
     @property
     def snapshot_bytes(self) -> int:
@@ -85,8 +112,10 @@ def plan_pairs(
         raise ValueError(f"rb must be positive, got {rb}")
     if snap_k < 1:
         raise ValueError(f"snap_k must be positive, got {snap_k}")
+    chunk = chunk_steps(snap_k, snaps)
     params = np.zeros((len(pairs), NCOL), np.int64)
-    snap_off = rows_off = 0
+    items = []
+    snap_off = rows_off = slot = 0
     for p, (xg, yg) in enumerate(pairs):
         m, n = int(lengths[xg]), int(lengths[yg])
         if m < 1 or n < 1:
@@ -94,9 +123,13 @@ def plan_pairs(
         nb = -(-m // rb)
         s = (min(rb, m) + n - 1) // snap_k + 1 if snaps else 0
         params[p] = [m, n, xg, yg, nb, s, snap_off, rows_off]
+        last = m - (nb - 1) * rb + n
+        items += [(-((nb - 1 - b) * (rb + chunk) + last), p, b, slot + b) for b in range(nb)]
         snap_off += nb * s * 3 * (rb + 1)
         rows_off += (nb - 1) * n
-    return Plan(params, rb, snap_k, rows_off, snap_off)
+        slot += nb
+    table = np.array([it[1:] for it in sorted(items)], np.int32).reshape(-1, 3)
+    return Plan(params, rb, snap_k, rows_off, snap_off, table, chunk)
 
 
 def gene_table(genes: Sequence[str]) -> np.ndarray:
@@ -129,29 +162,44 @@ def band_fill(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillState
     table = table.contiguous()
     dev = table.device
     params = to_card(plan.params, dev)
+    items = to_card(plan.items, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     out = FillState(
-        score=torch.zeros(plan.num_pairs, dtype=torch.int32, device=dev),
-        rows=torch.zeros(max(plan.rows_len, 1), dtype=torch.int32, device=dev),
-        snaps=torch.zeros(plan.snaps_len, dtype=torch.int32, device=dev),
+        score=torch.zeros(plan.num_pairs, **i32),
+        rows=torch.zeros(max(plan.rows_len, 1), **i32),
+        snaps=torch.zeros(plan.snaps_len, **i32),
     )
+    # Zeroed for every launch: the bands' published column counts and the
+    # ticket counter.
+    progress = torch.zeros(plan.num_items, **i32)
+    tickets = torch.zeros(1, **i32)
+    blocks = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.band_fill(
-        table.data_ptr(), table.stride(0), params.data_ptr(), plan.num_pairs,
-        plan.rb, plan.snap_k, pxy, pgap, out.score.data_ptr(),
-        out.rows.data_ptr(), out.snaps.data_ptr() if plan.snaps_len else None,
-        ctypes.c_void_p(stream),
+        table.data_ptr(), table.stride(0), params.data_ptr(), items.data_ptr(),
+        plan.num_items, plan.rb, plan.snap_k, plan.chunk, pxy, pgap,
+        out.score.data_ptr(), out.rows.data_ptr(),
+        out.snaps.data_ptr() if plan.snaps_len else None, progress.data_ptr(),
+        tickets.data_ptr(), ctypes.byref(blocks), ctypes.c_void_p(stream),
     )
     _build.check("band_fill", err)
     _build.count(band_fill, plan.num_pairs)
+    band_fill.blocks = blocks.value
     return out
 
 
 band_fill.launches = 0  # kernel launches (plain-version runs not counted)
 band_fill.pairs = 0  # pairs those launches filled
+band_fill.blocks = 0  # the last launch's persistent grid
 
 
 def band_fill_ref(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillState:
-    """Plain PyTorch fill: one Python step per diagonal, same outputs."""
+    """Plain PyTorch fill: one Python step per diagonal, same outputs.
+
+    Band b of every pair that has one runs in one batch, a row per pair, and
+    the bands run in order: band b + 1 reads band b's bottom rows. Steps past
+    a pair's own end change none of its outputs.
+    """
     dev = table.device
     rb, K = plan.rb, plan.snap_k
     lanes = rb + 1
@@ -159,55 +207,66 @@ def band_fill_ref(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillS
     score = torch.zeros(plan.num_pairs, **i32)
     rows = torch.zeros(max(plan.rows_len, 1), **i32)
     snaps = torch.zeros(plan.snaps_len, **i32)
-    neg = torch.full((1,), NEG_FILL, **i32)
-    for p, prm in enumerate(plan.params.tolist()):
-        m, n, xg, yg, nb, S, snap_off, rows_off = prm
-        x = table[xg, :m].to(torch.int32)
-        y = table[yg, :n].to(torch.int32)
-        for b in range(nb):
-            i0 = b * rb
-            nrows = min(rb, m - i0)
-            steps = nrows + n
-            xv = torch.full((lanes,), X_SENTINEL, **i32)
-            xv[1 : nrows + 1] = x[i0 : i0 + nrows]
-            yfeed = torch.full((steps,), Y_SENTINEL, **i32)
-            yfeed[:n] = y
-            tfeed = torch.full((steps,), NEG_FILL, **i32)
-            if b == 0:
-                tfeed[:n] = torch.arange(1, n + 1, **i32) * pgap
-            else:
-                tfeed[:n] = rows[rows_off + (b - 1) * n : rows_off + b * n]
-            bottom = torch.zeros(n, **i32)
+    lane = torch.arange(lanes, **i32)
+    width = table.shape[1]
 
-            p1 = torch.full((lanes,), NEG_FILL, **i32)
-            p1[0] = i0 * pgap
-            p1s = torch.cat([neg, p1[:-1]])
-            p2s = torch.full((lanes,), NEG_FILL, **i32)
-            yd = torch.full((lanes,), Y_SENTINEL, **i32)
-            snap_b = snap_off + b * S * 3 * lanes
+    def on(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-            def snapshot(s):
-                if plan.snaps_len:
-                    base = snap_b + s * 3 * lanes
-                    snaps[base : base + 3 * lanes] = torch.cat([p1, p1s, p2s])
+    for b in range(int(plan.params[:, P_NB].max(initial=0))):
+        act = np.flatnonzero(plan.params[:, P_NB] > b)
+        m, n, xg, yg, nb, S, snap_off, rows_off = plan.params[act].T
+        i0 = b * rb
+        nrows = np.minimum(rb, m - i0)
+        steps = nrows + n
+        T = int(steps.max())
+        nrows_d, n_d = on(nrows)[:, None], on(n)[:, None]
+        xv = table[on(xg)[:, None], (i0 + lane - 1).clamp(0, width - 1)[None, :]].to(torch.int32)
+        xv = torch.where((lane >= 1) & (lane <= nrows_d), xv, X_SENTINEL)
+        d = torch.arange(T, **i32)[None, :]
+        yfeed = table[on(yg)[:, None], d.clamp(max=width - 1)].to(torch.int32)
+        yfeed = torch.where(d < n_d, yfeed, Y_SENTINEL)
+        if b == 0:
+            tops = (d + 1) * pgap
+        else:
+            src = on(rows_off + (b - 1) * n)[:, None] + d.clamp(max=int(n.max()) - 1)
+            tops = rows[src.clamp(max=rows.numel() - 1)]
+        tfeed = torch.where(d < n_d, tops, NEG_FILL)
+        bottom = torch.zeros((len(act), max(T - rb, 1)), **i32)
+        last = nb - 1 == b
 
-            snapshot(0)
-            for dl in range(1, steps + 1):
-                yd = torch.cat([yfeed[dl - 1 : dl], yd[:-1]])
-                t1 = p2s + torch.where(xv == yd, 0, pxy).to(torch.int32)
-                cur = torch.minimum(t1, torch.minimum(p1, p1s) + pgap)
-                cur[0] = tfeed[dl - 1]
-                if dl < lanes:
-                    cur[dl] = (i0 + dl) * pgap
-                if b < nb - 1 and dl > rb:
-                    bottom[dl - rb - 1] = cur[rb]
-                if b == nb - 1 and dl == steps:
-                    score[p] = cur[nrows]
-                p2s, p1s, p1 = p1s, torch.cat([neg, cur[:-1]]), cur
-                if dl % K == 0 and dl < steps:
-                    snapshot(dl // K)
-            if b < nb - 1:
-                rows[rows_off + b * n : rows_off + (b + 1) * n] = bottom
+        neg = torch.full((len(act), 1), NEG_FILL, **i32)
+        p1 = torch.full((len(act), lanes), NEG_FILL, **i32)
+        p1[:, 0] = i0 * pgap
+        p1s = torch.cat([neg, p1[:, :-1]], 1)
+        p2s = torch.full((len(act), lanes), NEG_FILL, **i32)
+        yd = torch.full((len(act), lanes), Y_SENTINEL, **i32)
+
+        def snapshot(s):
+            state = torch.cat([p1, p1s, p2s], 1)
+            for a in np.flatnonzero(s * K < steps) if plan.snaps_len else ():
+                base = int(snap_off[a] + (b * S[a] + s) * 3 * lanes)
+                snaps[base : base + 3 * lanes] = state[a]
+
+        snapshot(0)
+        for dl in range(1, T + 1):
+            yd = torch.cat([yfeed[:, dl - 1 : dl], yd[:, :-1]], 1)
+            t1 = p2s + torch.where(xv == yd, 0, pxy).to(torch.int32)
+            cur = torch.minimum(t1, torch.minimum(p1, p1s) + pgap)
+            cur[:, 0] = tfeed[:, dl - 1]
+            if dl < lanes:
+                cur[:, dl] = (i0 + dl) * pgap
+            if dl > rb:
+                bottom[:, dl - rb - 1] = cur[:, rb]
+            done = np.flatnonzero(last & (steps == dl))
+            if done.size:
+                score[on(act[done])] = cur[on(done), on(nrows[done])]
+            p2s, p1s, p1 = p1s, torch.cat([neg, cur[:, :-1]], 1), cur
+            if dl % K == 0:
+                snapshot(dl // K)
+        for a in np.flatnonzero(nb - 1 > b):
+            off = int(rows_off[a] + b * n[a])
+            rows[off : off + int(n[a])] = bottom[a, : int(n[a])]
     return FillState(score, rows, snaps)
 
 

@@ -1,8 +1,9 @@
 """The device pipeline for a list of pairs: one fill launch, one walk launch.
 
 Port of ``msa_tpu/ops/batch.py::align_pairs_batched``. The gene table goes
-to the device once as uint8 codes. One fill launch covers every pair (one
-thread block each) and one walk launch traces every pair. The scores, move
+to the device once as uint8 codes. One fill launch covers every pair (each
+band a work item of its persistent grid) and one walk launch traces every
+pair. The scores, move
 words and move counts come back in one fetch each, and the host turns each
 pair's moves into its alignment strings: ``decode_moves`` ->
 ``moves_to_alignment``. Everything the JAX version did to serve one compiled
@@ -17,7 +18,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from msa_tpu.utils.alignment import moves_to_alignment
+from msa_tpu_torch.utils.alignment import moves_to_alignment
 from msa_tpu_torch.ops.band_fill import band_fill, gene_table, plan_pairs
 from msa_tpu_torch.ops.walk import banded_walk_plan, pair_moves, walk
 

@@ -62,8 +62,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from msa_tpu.utils.alignment import moves_to_alignment
-from msa_tpu.utils.tasks import PairTask
+from msa_tpu_torch.utils.alignment import moves_to_alignment
+from msa_tpu_torch.utils.tasks import PairTask
 from msa_tpu_torch.config import MAX_RB, TorchConfig
 from msa_tpu_torch.ops.band_fill import (
     NEG_FILL,

@@ -153,7 +153,7 @@ def nw_align_torch(x: str, y: str, pxy: int, pgap: int,
     pair runs transposed with the swap tie-break and its alignments are
     swapped back (nw_jax.py:204-230).
     """
-    from msa_tpu.utils.alignment import moves_to_alignment
+    from msa_tpu_torch.utils.alignment import moves_to_alignment
 
     swapped = len(x) > len(y)
     xs, ys = (y, x) if swapped else (x, y)

@@ -94,8 +94,9 @@ def calibrate(
     """Measure the fill's throughput and per-pair fixed cost on the card.
 
     Two timed pair sizes solve cost(m, n) = fixed_us + cells / rate for both
-    terms. One pair is one thread block, so the rate is one SM's, as the
-    JAX package's probe measured one TPU core's. Returns None without a
+    terms. A pair's bands run side by side on a few SMs (the 20,000-long
+    probe has 3 bands at rb 8191), so the rate is that of one pair's chain
+    of bands, not the card's. Returns None without a
     card, or when the two timings stay inverted after a retry with more
     repetitions. ``nw_score`` fetches its result, so each call is timed to
     its end.

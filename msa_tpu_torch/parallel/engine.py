@@ -24,8 +24,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from msa_tpu.utils.hashing import chain_hashes
-from msa_tpu.utils.msaio import Problem
+from msa_tpu_torch.utils.hashing import chain_hashes
+from msa_tpu_torch.utils.msaio import Problem
 from msa_tpu_torch.config import TorchConfig
 from msa_tpu_torch.models.kway import KWayAligner, KWayResult
 from msa_tpu_torch.parallel import mesh

@@ -19,16 +19,20 @@ from msa_tpu_torch.config import TorchConfig
 def local_devices(config: TorchConfig) -> List[torch.device]:
     """``cuda:0 .. count - 1``, at most ``config.local_devices`` of them (0: all).
 
-    ``[cpu]`` when ``config.device`` is "cpu", or is unset and there is no
-    card; the one device ``config.device`` names when it names an indexed
-    card. "cuda" with no card gives no device, never the CPU.
+    ``[cpu]`` when ``config.device`` is "cpu"; the one device
+    ``config.device`` names when it names an indexed card. "cuda" with no
+    card gives no device, never the CPU; with ``config.device`` unset and no
+    card it raises: the CPU runs only when the caller asks for it.
     """
     if config.device:
         dev = torch.device(config.device)
         if dev.type != "cuda" or dev.index is not None:
             return [dev]
     elif not torch.cuda.is_available():
-        return [torch.device("cpu")]
+        raise RuntimeError(
+            "no CUDA device is available; to run on the CPU, ask for it:"
+            " --platform cpu or MSA_TPU_TORCH_DEVICE=cpu"
+        )
     count = torch.cuda.device_count()
     return [torch.device("cuda", i) for i in range(min(count, config.local_devices or count))]
 

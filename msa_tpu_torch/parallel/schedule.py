@@ -13,7 +13,7 @@ from __future__ import annotations
 import heapq
 from typing import List, Sequence, Tuple
 
-from msa_tpu.utils.tasks import PairTask, pair_task_list
+from msa_tpu_torch.utils.tasks import PairTask, pair_task_list
 
 
 def pair_costs(genes: Sequence[str]) -> List[Tuple[PairTask, int]]:

@@ -265,12 +265,11 @@ def test_kway_conveyor_matches_jax_package(monkeypatch, conveyors):
 
 def test_choose_fill_mode():
     for mode in ("banded", "conveyor"):
-        assert kway.choose_fill_mode(TorchConfig(fill_mode=mode), 78) == mode
-    auto = TorchConfig(fill_mode="auto")
-    assert kway.choose_fill_mode(auto, kway._CONVEYOR_MIN_PAIRS) == "conveyor"
-    assert kway.choose_fill_mode(auto, kway._CONVEYOR_MIN_PAIRS - 1) == "banded"
+        assert kway.choose_fill_mode(TorchConfig(fill_mode=mode)) == mode
+    # "auto" follows the card's A/B: the pipelined banded fill.
+    assert kway.choose_fill_mode(TorchConfig(fill_mode="auto")) == "banded"
     with pytest.raises(ValueError, match="fill_mode"):
-        kway.choose_fill_mode(TorchConfig(fill_mode="striped"), 3)
+        kway.choose_fill_mode(TorchConfig(fill_mode="striped"))
 
 
 def test_config_conveyor_knobs_from_env(monkeypatch):

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on a card.
 
-Marked ``cuda``; each test skips without a CUDA device. On the machine with
-the card (which has no jax, so the suite's conftest cannot load) run::
+Marked ``cuda``; each test skips without a CUDA device. They import nothing of
+the JAX package. On the machine with the card (which has no jax, so the
+suite's conftest cannot load) run::
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from msa_tpu.ops.reference import nw_align_numpy
+from msa_tpu_torch.ops.reference import nw_align_numpy
 from msa_tpu_torch.config import TorchConfig
 from msa_tpu_torch.ops import band_fill as bf
 from msa_tpu_torch.ops import conveyor as cv
@@ -49,6 +50,20 @@ def test_kernels_equal_plain_versions(card, rb, snap_k):
     words, counts = wk.walk(table, wplan, fill.rows, fill.snaps, 3, 2)
     rwords, rcounts = wk.walk_ref(table, wplan, fill.rows, fill.snaps, 3, 2)
     assert torch.equal(words, rwords) and torch.equal(counts, rcounts)
+
+
+@pytest.mark.parametrize("snaps", [True, False])
+def test_pipelined_fill_equals_plain_version(card, snaps):
+    """Many bands a pair, pairs of every shape: every entry equal."""
+    genes = _genes(31, [1900, 60, 1300, 7, 2500])
+    pairs = [(i, j) for i in range(5) for j in range(5) if i != j]
+    plan = bf.plan_pairs([len(g) for g in genes], pairs, 63, 96, snaps=snaps)
+    table = torch.from_numpy(bf.gene_table(genes)).to(card)
+    fill = bf.band_fill(table, plan, 3, 2)
+    ref = bf.band_fill_ref(table, plan, 3, 2)
+    assert plan.num_items > len(pairs) and bf.band_fill.blocks >= 1
+    assert torch.equal(fill.score, ref.score) and torch.equal(fill.rows, ref.rows)
+    assert torch.equal(fill.snaps, ref.snaps)
 
 
 def test_pipeline_on_card_matches_oracle(card):
@@ -118,7 +133,7 @@ def test_score_only_fill_equals_plain_version(card, rb):
 
 
 def test_two_shards_on_one_card_match_oracle(card, monkeypatch):
-    from msa_tpu.utils.msaio import Problem
+    from msa_tpu_torch.utils.msaio import Problem
     from msa_tpu_torch.models.kway import align_kway
     from msa_tpu_torch.parallel import mesh
 

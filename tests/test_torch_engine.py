@@ -195,7 +195,9 @@ def test_run_batched_keeps_input_order(monkeypatch):
 def test_local_devices(monkeypatch):
     assert mesh.local_devices(TorchConfig(device="cpu")) == [CPU]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert mesh.local_devices(TorchConfig()) == [CPU]
+    assert mesh.local_devices(TorchConfig(device="cpu")) == [CPU]
+    with pytest.raises(RuntimeError, match="--platform cpu"):
+        mesh.local_devices(TorchConfig())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cards = [torch.device("cuda", i) for i in range(4)]
@@ -279,7 +281,7 @@ def test_conveyor_split_fires_each_pair_once():
 def test_cli_batched_single_process(data_dir, capsys):
     from msa_tpu_torch.cli import main
 
-    assert main(["--batched", "--input", str(data_dir / "mseq1.dat")]) == 0
+    assert main(["--batched", "--platform", "cpu", "--input", str(data_dir / "mseq1.dat")]) == 0
     lines = capsys.readouterr().out.split("\n")
     assert lines[1] == MSEQ1_HASH
     assert lines[2] == "".join(f"{p} " for p in MSEQ1_PENALTIES)

@@ -36,13 +36,6 @@ MSEQ1_PENALTIES = [
     5, 4, 9, 12, 14, 11, 11, 10, 11, 10, 20, 22, 16, 8, 15, 36, 38, 32,
     24, 28, 22, 31, 30, 27, 22, 20, 22, 20, 20, 22, 16, 8, 15, 0, 22, 22,
 ]
-# The jax-free modules of msa_tpu that the port may import (utils.timing
-# imports jax only inside ``profile``, which the port does not call).
-ALLOWED_MSA_TPU = {
-    "msa_tpu.utils.msaio", "msa_tpu.utils.hashing", "msa_tpu.utils.alignment",
-    "msa_tpu.utils.tasks", "msa_tpu.utils.checkpoint", "msa_tpu.utils.timing",
-    "msa_tpu.ops.reference", "msa_tpu.native",
-}
 
 
 def _problem(seed=42):
@@ -109,7 +102,7 @@ def test_cli_goldens(data_dir, capsys, backend):
         ("mseq.dat", MSEQ_HASH, [5, 4, 9]),
         ("mseq1.dat", MSEQ1_HASH, MSEQ1_PENALTIES),
     ]:
-        assert main(["--backend", backend, "--input", str(data_dir / name)]) == 0
+        assert main(["--backend", backend, "--platform", "cpu", "--input", str(data_dir / name)]) == 0
         lines = capsys.readouterr().out.split("\n")
         assert lines[0].startswith("Time: ") and lines[0].endswith(" us")
         assert lines[1] == hash_
@@ -119,7 +112,7 @@ def test_cli_goldens(data_dir, capsys, backend):
 def test_cli_module_stdin_contract(data_dir):
     with open(data_dir / "mseq.dat", "rb") as f:
         out = subprocess.run(
-            [sys.executable, "-m", "msa_tpu_torch.cli"], stdin=f, cwd=REPO,
+            [sys.executable, "-m", "msa_tpu_torch.cli", "--platform", "cpu"], stdin=f, cwd=REPO,
             capture_output=True, check=True, timeout=120,
         ).stdout.decode()
     lines = out.split("\n")
@@ -141,7 +134,8 @@ def test_cuda_backend_raises_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         pairwise.pipeline_device("cuda", TorchConfig())
-    assert pairwise.pipeline_device("auto", TorchConfig()) is None
+    with pytest.raises(RuntimeError, match="--platform cpu"):
+        pairwise.pipeline_device("auto", TorchConfig())
     with pytest.raises(ValueError, match="unknown backend"):
         pairwise.pipeline_device("pallas", TorchConfig())
 
@@ -162,20 +156,19 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((REPO / "msa_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "msa_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "fill_ablation.py"]
     assert len(files) > 8
     for path in files:
         for name in _imports(path):
-            top = name.split(".")[0]
-            assert top != "jax", f"{path} imports {name}"
-            if top == "msa_tpu":
-                assert any(
-                    name == a or name.startswith(a + ".") for a in ALLOWED_MSA_TPU
-                ), f"{path} imports {name}"
+            # The port keeps its own copies of the host code it shares with
+            # the JAX package: it imports nothing of it.
+            assert name.split(".")[0] not in ("jax", "msa_tpu"), f"{path} imports {name}"
 
 
 def test_port_modules_leave_jax_unimported():
-    """Importing every module of the port, the engine's included, loads no jax."""
+    """Importing every module of the port, the engine's included, loads no jax
+    and nothing of the JAX package."""
     files = sorted((REPO / "msa_tpu_torch").rglob("*.py"))
     rel = {str(p.relative_to(REPO)) for p in files}
     assert {"msa_tpu_torch/parallel/engine.py", "msa_tpu_torch/parallel/costmodel.py",
@@ -188,5 +181,7 @@ def test_port_modules_leave_jax_unimported():
     ]
     code = "import sys\n" + "".join(f"import {m}\n" for m in modules) + (
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
+        "assert 'msa_tpu' not in sys.modules,"
+        " sorted(m for m in sys.modules if m.split('.')[0] == 'msa_tpu')\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
