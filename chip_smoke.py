@@ -20,10 +20,16 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
 4. big13 end to end through ``msa_tpu_torch.cli`` with ``--backend cuda``
    and ``fill_mode=banded``: the full golden chain hash and all 78
    penalties, both kernels launched, all 78 pairs on the device, twice; each
-   kernel alone on big13; the band-height sweep (rb 1023, 2047, 4095, 8191:
-   fill and walk by events, scores golden); then mseq1, which stays on the
-   host, and the other bundled datasets (permuted big13, and the two xulin
-   sets against their recorded host-oracle goldens in
+   kernel alone on big13; the walk's moves, segments and bound on big13
+   (``big13_walk``, from the run's own output) and ``walk_ablation.py``'s
+   variants (lane retirement on and off, the recompute twice) in turns; the
+   band-height sweep (rb 1023, 2047, 4095, 8191: fill and walk by events,
+   scores golden); big13 in one wave, two (the default) and four or more
+   under a forced budget, in turns (``big13_waves``: fill, walk, rest, peak
+   memory); the
+   host stages of the ``auto`` run (``big13_host_stages``); then mseq1,
+   which stays on the host, and the other bundled datasets (permuted big13,
+   and the two xulin sets against their recorded host-oracle goldens in
    data/host_goldens.jsonl, skewed pairs included);
 5. the conveyor fill kernel against ``conveyor_fill_ref`` on the card, in
    four segments: (a) one sweep of many tenants at rb = 1024 (short and
@@ -35,11 +41,13 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
 6. big13 through the CLI with ``fill_mode=conveyor``, twice (one sweep a
    pair), then with 26 sweeps (three pairs each): golden hash and penalties,
    the conveyor fill and the walk launched, 78 conveyor pairs; each kernel
-   alone on big13; the banded and conveyor times side by side; then the
+   alone on big13, the walk's moves and segments on the conveyor layout;
+   the banded and conveyor times side by side; then the
    permuted big13 and the xulin sets under ``fill_mode=conveyor``; the
    fill-mode A/B (banded, conveyor, conveyor, banded, banded, conveyor);
    big13 under ``fill_mode=auto``, golden, through the fill it chooses;
-   each kernel's big13 time beside its bound, share of bound and launches;
+   each kernel's big13 time beside its bound, share of bound and its
+   launches under ``auto`` (the conveyor's run's launches apart);
 7. ``score_only_vs_plain``: the fill kernel with snapshots off on the
    phase-2 inputs, scores and rows equal to ``band_fill_ref`` with snapshots
    off and scores equal to the full fill's;
@@ -59,8 +67,10 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    its recorded golden, the trace naming the fill and walk kernels;
 13. ``torch_backend``: ``--backend torch`` (the plain-torch sweep) on the
    card on mseq1;
-14. one JSON line of the kernels' launches, errors, times and bounds, then
-   the last line ``{"ok": true, "device": {...}}``.
+14. one JSON line of the kernels' launches (the ``auto`` run's for the
+   kernels it runs; the conveyor fill's from its own path's run, beside
+   ``auto_launches``), errors, times and bounds, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 It needs the repository around it and a CUDA device, and exits nonzero
 without either.
@@ -146,12 +156,49 @@ def fill_bound(genes, pairs, out_ints):
     return bound(cells, seq_bytes(genes, pairs) + 4 * out_ints)
 
 
-def walk_bound(genes, pairs, snap_k, window):
-    """The walk: a pair's path crosses about (m + n) / snap_k segments, each a
-    recompute of snap_k diagonals of ``window`` lanes from a 3-plane snapshot;
-    the moves are written at 2 bits each."""
-    span = sum(len(genes[i]) + len(genes[j]) for i, j in pairs)
-    return bound(span * window, seq_bytes(genes, pairs) + span / snap_k * 12 * window + span / 4)
+def walk_work(words, counts, wplan):
+    """What one walk launch did, per pair, from its output: moves, segments,
+    barrier steps, the cells of each segment's cone (the cells the walk can
+    reach: lanes q - u .. q, u steps back from the entry step, none below
+    lane 0) and the snapshot lanes the cones start from."""
+    import numpy as np
+
+    from msa_tpu_torch.ops import walk as wk
+
+    words, counts = words.cpu().numpy(), counts.cpu().numpy()
+    work = []
+    for p in range(wplan.num_pairs):
+        m, n = (int(v) for v in wplan.pairs[p, [wk.W_M, wk.W_N]])
+        moves = wk.pair_moves(words, counts, wplan, p)
+        steps, q = wk.walk_segments(m, n, moves, wplan.rb, wplan.snap_k).T
+        cone = np.where(q >= steps - 1, steps * (steps + 1) // 2,
+                        (q + 1) * (q + 2) // 2 + (steps - 1 - q) * (q + 1))
+        work.append({"m": m, "n": n, "moves": len(moves), "segments": len(steps),
+                     "steps": int(steps.sum()), "cone_cells": int(cone.sum()),
+                     "lanes_loaded": int((np.minimum(steps - 1, q) + 1).sum())})
+    return work
+
+
+def walk_bound(work):
+    """The walk: each segment's cone once (5 operations a cell); each pair's
+    codes, the snapshot lanes its cones start from (3 planes) and its 2-bit
+    moves moved once."""
+    cells = sum(w["cone_cells"] for w in work)
+    nbytes = sum(w["m"] + w["n"] + 12 * w["lanes_loaded"] + w["moves"] / 4 for w in work)
+    return bound(cells, nbytes)
+
+
+def walk_phase(layout, ms, work, smi, **fields):
+    """One walk launch on big13: its time beside its moves and segments."""
+    longest = max(work, key=lambda w: w["steps"])
+    bound_ms, bound_by = walk_bound(work)
+    phase("big13_walk", layout=layout, ms=ms, pairs=len(work),
+          moves=sum(w["moves"] for w in work), segments=sum(w["segments"] for w in work),
+          cone_cells=sum(w["cone_cells"] for w in work),
+          longest_pair={k: longest[k] for k in ("m", "n", "moves", "segments", "steps")},
+          ms_per_move_of_longest_pair=ms / longest["moves"],
+          ms_per_step_of_longest_pair=ms / longest["steps"],
+          bound_ms=bound_ms, bound_by=bound_by, card=smi, **fields)
 
 
 def band_fill_bound(genes, pairs, plan):
@@ -200,6 +247,7 @@ def check_case(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
     walk_err = max((words - rwords).abs().max().item(), (counts - rcounts).abs().max().item())
     if walk_err != 0:
         raise AssertionError(f"{name}: walk kernel differs from walk_ref by {walk_err}")
+    work = walk_work(words, counts, wplan)
     words, counts, scores = words.cpu().numpy(), counts.cpu().numpy(), fill.score.cpu().numpy()
     for p, (i, j) in enumerate(pairs):
         moves = wk.pair_moves(words, counts, wplan, p)
@@ -210,8 +258,7 @@ def check_case(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
           max_abs_err=walk_err, alignments="equal to nw_align_native",
           ms=walk_ms, plain_ms=walk_plain_ms)
     return {"fill": (fill_err, fill_ms, fill_plain_ms, band_fill_bound(genes, pairs, plan)),
-            "walk": (walk_err, walk_ms, walk_plain_ms,
-                     walk_bound(genes, pairs, snap_k, wk.window(wplan)))}
+            "walk": (walk_err, walk_ms, walk_plain_ms, walk_bound(work))}
 
 
 def check_fill(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
@@ -641,6 +688,150 @@ def fill_mode_ab(banded, conveyor, smi):
           faster=min(seconds, key=lambda k: sorted(seconds[k])[1]), card=smi)
 
 
+@contextlib.contextmanager
+def launch_events(module, names):
+    """Record a CUDA event before and after each call of ``module.<name>``,
+    on the stream current at the call; yields {name: [(start, end), ...]}."""
+    import torch
+
+    spans = {name: [] for name in names}
+    real = {name: getattr(module, name) for name in names}
+
+    def timed(name):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*a, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    for name in names:
+        setattr(module, name, timed(name))
+    try:
+        yield spans
+    finally:
+        for name in names:
+            setattr(module, name, real[name])
+
+
+def big13_waves(genes, pairs, banded, cfg, smi):
+    """big13 under fill_mode=banded in one wave, in two (the default: a wave
+    takes at most half the pairs' bytes, ``batch.HALVES``) and under a
+    budget forced to four or more, in turns (1, 4+, 2, 2, 4+, 1): golden
+    each time, with the fill's and the walk's device time (CUDA events
+    around each launch), the device's span from the first fill to the last
+    walk, the rest of the wall time, and the peak device memory."""
+    import torch
+
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import batch
+
+    sizes = batch.pair_bytes(bf.plan_pairs([len(g) for g in genes], pairs, cfg.rb, cfg.snap_k))
+    total, biggest = int(sizes.sum()), int(sizes.max())
+    # (HALVES, budget (0: the card's), waves): a wave takes at most half the
+    # budget, and the greedy cut in size order fills each wave but the last
+    # past its cap less the biggest pair.
+    settings = {"one": (1, 0, 1), "two": (batch.HALVES, 0, 2),
+                "four_plus": (batch.HALVES, 2 * max(biggest, -(-total // 4)), 4)}
+    runs = {name: [] for name in settings}
+    default_halves = batch.HALVES
+    for name in ("one", "four_plus", "two", "two", "four_plus", "one"):
+        halves, budget, waves = settings[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batch.HALVES = halves
+        try:
+            with port_env(fill_mode="banded", hbm_budget=budget), \
+                    launch_events(batch, ["band_fill", "walk"]) as spans:
+                seconds, launches, _ = run_big13(banded)
+        finally:
+            batch.HALVES = default_halves
+        torch.cuda.synchronize()
+        got = len(spans["band_fill"])
+        if got != len(spans["walk"]) or not (got == waves if waves < 4 else got >= waves):
+            raise AssertionError(f"big13 {name}: {launches} launches, expected {waves} waves")
+        first, last = spans["band_fill"][0][0], spans["walk"][-1][1]
+        fill_ms = sum(a.elapsed_time(b) for a, b in spans["band_fill"])
+        walk_ms = sum(a.elapsed_time(b) for a, b in spans["walk"])
+        run = {"seconds": seconds, "waves": got, "fill_ms": fill_ms, "walk_ms": walk_ms,
+               "device_span_ms": first.elapsed_time(last),
+               "rest_ms": seconds * 1e3 - fill_ms - walk_ms,
+               "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        runs[name].append(run)
+        phase("big13_waves", run=name, halves=halves, budget=budget, hash=BIG13_HASH, **run,
+              card=smi)
+    phase("big13_waves_summary", seconds={k: [r["seconds"] for r in v] for k, v in runs.items()},
+          faster=min(runs, key=lambda k: min(r["seconds"] for r in runs[k])),
+          wave_bytes_total=total, biggest_pair_bytes=biggest, card=smi)
+
+
+def host_stages(smi):
+    """Where big13's wall time goes under fill_mode=auto: host time of each
+    stage (summed over the threads that ran it), the kernels' device time
+    by events, and when the device finished, from the run's start."""
+    import threading
+
+    import torch
+
+    from msa_tpu_torch.models import kway
+    from msa_tpu_torch.ops import batch
+    from msa_tpu_torch.utils import msaio
+
+    stages = {
+        "parse": (msaio, "parse_file"), "plan": (batch, "plan_pairs"),
+        "walk_plan": (batch, "banded_walk_plan"), "gene_table": (batch, "gene_table"),
+        "fill_enqueue": (batch, "band_fill"), "walk_enqueue": (batch, "walk"),
+        "decode_moves": (batch, "pair_moves"), "moves_to_alignment": (batch, "moves_to_alignment"),
+        "pair_hash": (kway, "pair_hash"), "chain": (kway, "chain_hashes"),
+    }
+    lock = threading.Lock()
+    totals = {name: [0.0, 0] for name in stages}
+    decode_span = [None, None]
+    real = {name: getattr(mod, attr) for name, (mod, attr) in stages.items()}
+
+    def timed(name):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            t1 = time.perf_counter()
+            with lock:
+                totals[name][0] += t1 - t0
+                totals[name][1] += 1
+                if name in ("decode_moves", "moves_to_alignment"):
+                    decode_span[0] = min(decode_span[0] or t0, t0)
+                    decode_span[1] = max(decode_span[1] or t1, t1)
+            return out
+        return call
+
+    for name, (mod, attr) in stages.items():
+        setattr(mod, attr, timed(name))
+    try:
+        torch.cuda.synchronize()
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        with port_env(fill_mode="auto"), launch_events(batch, ["band_fill", "walk"]) as spans:
+            t0 = time.perf_counter()
+            lines, seconds = run_cli(["--backend", "cuda", "--input", "data/mseq-big13-example.txt"])
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, attr) in stages.items():
+            setattr(mod, attr, real[name])
+    if lines[1] != BIG13_HASH or lines[2].split() != [str(p) for p in BIG13_PENALTIES]:
+        raise AssertionError("big13 under the stage timers is not golden")
+    phase("big13_host_stages", fill_mode="auto", hash=BIG13_HASH, seconds=seconds,
+          stages_ms={k: v[0] * 1e3 for k, v in totals.items()},
+          calls={k: v[1] for k, v in totals.items()},
+          decode_wall_ms=(decode_span[1] - decode_span[0]) * 1e3,
+          decode_ends_after_start_ms=(decode_span[1] - t0) * 1e3,
+          fill_device_ms=[a.elapsed_time(b) for a, b in spans["band_fill"]],
+          walk_device_ms=[a.elapsed_time(b) for a, b in spans["walk"]],
+          device_done_after_start_ms=mark.elapsed_time(spans["walk"][-1][1]),
+          card=smi)
+
+
 def main() -> int:
     import torch
 
@@ -656,6 +847,8 @@ def main() -> int:
     from msa_tpu_torch.ops import band_fill as bf
     from msa_tpu_torch.ops import conveyor as cv
     from msa_tpu_torch.ops import walk as wk
+
+    import walk_ablation
 
     # 1. setup
     smi = subprocess.run(
@@ -716,13 +909,20 @@ def main() -> int:
 
     wplan = wk.banded_walk_plan(plan)
     fill_ms = cuda_ms(fill_once, reps=1)
-    walk_ms = cuda_ms(lambda: wk.walk(table, wplan, holder["fill"].rows, holder["fill"].snaps,
-                                      problem.pxy, problem.pgap), reps=1)
-    del holder["fill"]
+    walk_args = (table, wplan, holder["fill"].rows, holder["fill"].snaps, problem.pxy, problem.pgap)
+    walk_ms = cuda_ms(lambda: wk.walk(*walk_args), reps=3)
+    banded_work = walk_work(*wk.walk(*walk_args), wplan)
     phase("big13_kernels", fill_mode="banded", fill_ms=fill_ms, walk_ms=walk_ms,
           fill_gcups=cells / fill_ms / 1e6, items=plan.num_items, blocks=bf.band_fill.blocks,
           rest_of_e2e_ms=min(runs) * 1e3 - fill_ms - walk_ms, card=smi)
+    # The walk on big13, banded layout, and what its design pays.
+    walk_phase("banded", walk_ms, banded_work, smi, rb=cfg.rb, snap_k=cfg.snap_k)
+    walk_ablation.ablate(*walk_args, smi, phase)
+    del walk_args, holder["fill"]
     rb_sweep(table, genes, pairs, problem, cfg, smi)
+    # The banded pipeline in waves, and where the main path's time goes.
+    big13_waves(genes, pairs, banded, cfg, smi)
+    host_stages(smi)
 
     lines, seconds = run_cli(["--backend", "cuda", "--input", "data/mseq1.dat"])
     if not lines[1].startswith(MSEQ1_HASH_PREFIX):
@@ -765,7 +965,8 @@ def main() -> int:
           snapshot_bytes=wl26.snapshot_bytes, card=smi)
 
     def conveyor_kernels(wl):
-        """Fill (all segments) and one walk of all pairs, each alone, by events."""
+        """Fill (all segments) and one walk of all pairs, each alone, by
+        events; and what the walk did."""
         n_seg = -(-wl.max_chunks // cfg.fill_segments)
 
         def fill_once():
@@ -776,13 +977,16 @@ def main() -> int:
 
         fill_ms = cuda_ms(fill_once, reps=1)
         cplan = cv.conveyor_walk_plan(wl, genes, range(wl.num_pairs))
-        walk_ms = cuda_ms(lambda: wk.walk(table, cplan, holder["state"].brow,
-                                          holder["state"].snaps, problem.pxy, problem.pgap), reps=1)
-        del holder["state"]
-        return fill_ms, walk_ms
+        args = (table, cplan, holder["state"].brow, holder["state"].snaps, problem.pxy, problem.pgap)
+        walk_ms = cuda_ms(lambda: wk.walk(*args), reps=3)
+        work = walk_work(*wk.walk(*args), cplan)
+        del args, holder["state"]
+        return fill_ms, walk_ms, work
 
-    conv_fill_ms, conv_walk_ms = conveyor_kernels(wl)
-    fill26_ms, walk26_ms = conveyor_kernels(wl26)
+    conv_fill_ms, conv_walk_ms, conv_work = conveyor_kernels(wl)
+    fill26_ms, walk26_ms, _ = conveyor_kernels(wl26)
+    walk_phase("conveyor", conv_walk_ms, conv_work, smi, sweeps=len(wl.sweeps),
+               rb=cfg.rb_conveyor, snap_k=cfg.snap_k)
     phase("big13_kernels", fill_mode="conveyor", sweeps=len(wl.sweeps), fill_ms=conv_fill_ms,
           walk_ms=conv_walk_ms, fill_gcups=cells / conv_fill_ms / 1e6,
           longest_sweep_steps=wl.max_chunks * cfg.snap_k,
@@ -810,18 +1014,25 @@ def main() -> int:
           launches=auto_launches, card=smi)
 
     # Each kernel on big13 beside its bound (the larger of its int32
-    # operations at the card's peak and its bytes at HBM rate).
+    # operations at the card's peak and its bytes at HBM rate), with its
+    # launches on the main path (fill_mode=auto); the conveyor's own run
+    # gives the launches of its fill and walk, under keys of their own.
     big13_bounds = {
-        "band_fill": (fill_ms, band_fill_bound(genes, pairs, plan), launches["band_fill"]),
+        "band_fill": (fill_ms, band_fill_bound(genes, pairs, plan), auto_launches["band_fill"]),
+        "walk": (walk_ms, walk_bound(banded_work), auto_launches["walk"]),
         "conveyor_fill": (conv_fill_ms, fill_bound(genes, pairs, wl.snaps_len + wl.brow_len + len(pairs)),
-                          conv_launches["conveyor_fill"]),
-        "walk": (conv_walk_ms, walk_bound(genes, pairs, cfg.snap_k, min(cfg.snap_k + 128, cfg.rb_conveyor + 1)),
-                 conv_launches["walk"]),
+                          auto_launches["conveyor_fill"]),
     }
-    phase("big13_kernel_bounds", card=smi, kernels={
+    kernel_bounds = {
         name: {"ms": ms, "bound_ms": b[0], "bound_by": b[1], "share_of_bound": b[0] / ms,
-               "big13_launches": n}
-        for name, (ms, b, n) in big13_bounds.items()})
+               "auto_launches": n}
+        for name, (ms, b, n) in big13_bounds.items()}
+    kernel_bounds["conveyor_fill"]["conveyor_launches"] = conv_launches["conveyor_fill"]
+    conv_walk_bound = walk_bound(conv_work)
+    phase("big13_kernel_bounds", card=smi, kernels=kernel_bounds, conveyor_walk={
+        "ms": conv_walk_ms, "bound_ms": conv_walk_bound[0], "bound_by": conv_walk_bound[1],
+        "share_of_bound": conv_walk_bound[0] / conv_walk_ms,
+        "conveyor_launches": conv_launches["walk"]})
 
     # 7-13. this slice: score-only fill, sharded scores, calibration, the
     # device split, two processes, the profiler, the torch backend
@@ -840,17 +1051,24 @@ def main() -> int:
         "walk": ("msa_tpu_torch/csrc/walk.cu", "msa_tpu/ops/pallas_walk.py:80"),
         "conveyor_fill": ("msa_tpu_torch/csrc/conveyor_fill.cu", "msa_tpu/ops/conveyor.py:322"),
     }
-    measured = {"band_fill": (timed["fill"], launches["band_fill"]),
-                "walk": (timed["walk"], conv_launches["walk"]),
-                "conveyor_fill": (conveyor_timed, conv_launches["conveyor_fill"])}
+    # Launches of the main path (fill_mode=auto) for the kernels it runs;
+    # the conveyor fill, off that path, from the run of its own path
+    # (fill_mode=conveyor), with the main path's 0 beside it.
+    measured = {"band_fill": (timed["fill"], auto_launches["band_fill"], {}),
+                "walk": (timed["walk"], auto_launches["walk"],
+                         {"conveyor_launches": conv_launches["walk"]}),
+                "conveyor_fill": (conveyor_timed, conv_launches["conveyor_fill"],
+                                  {"launches_from": "fill_mode=conveyor",
+                                   "auto_launches": auto_launches["conveyor_fill"]})}
     kernels = []
     # ms, plain_ms and the bound on the same inputs (the main geometry
     # cases); no single PyTorch call computes a fill or a traceback.
-    for name, ((err, ms, plain_ms, (bound_ms, bound_by)), count) in measured.items():
+    for name, ((err, ms, plain_ms, (bound_ms, bound_by)), count, extra) in measured.items():
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1], "launches": count,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                        **extra})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

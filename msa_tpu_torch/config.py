@@ -51,10 +51,13 @@ class TorchConfig:
     # Fill launches per conveyor workload (global chunk ranges); after each,
     # one walk launch covers the pairs the fill has finished.
     fill_segments: int = 4
-    # Host threads turning walk output into alignment strings.
+    # Host threads turning walk output into alignment strings, under either
+    # fill.
     decode_workers: int = 4
-    # Device bytes the conveyor's snapshots may take; 0 asks the card (75 %
-    # of its free memory). Over it, the workload is split in halves.
+    # Device bytes the pipelines' buffers may take; 0 asks the card (75 % of
+    # what it can still allocate, ops/band_fill.py::device_budget). Over it,
+    # the conveyor's workload is split in halves; the banded pipeline runs
+    # in waves of at most half of it each (ops/batch.py).
     hbm_budget: int = 0
     # Concurrent conveyor sweeps (one thread block each); 0 means
     # min(device pairs, SM count).

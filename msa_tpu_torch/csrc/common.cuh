@@ -51,36 +51,42 @@ __device__ __forceinline__ int top_value(const Band& B, int dl) {
   return B.top ? B.top[B.top_base + dl] : dl * B.pgap;
 }
 
-struct Lanes {
-  int x[CELLS], yd[CELLS], p1[CELLS], p1s[CELLS], p2s[CELLS];
+// The state of N consecutive lanes (CELLS in the fills; the walk picks its
+// own count, walk.cu).
+template <int N>
+struct LanesN {
+  int x[N], yd[N], p1[N], p1s[N], p2s[N];
 };
+using Lanes = LanesN<CELLS>;
 
 // Advance this thread's lanes by one diagonal. ``ny`` is the y code entering
 // lane q0 (from the previous thread, or the feed for thread 0); ``topv`` is
 // used only by lane q == 0; lane ``inj_q`` (the ramp's left border, or -1)
 // takes ``inj_v``. ``on_cell(c, q, cur, match, t1, t2, up, left)`` sees each
 // new cell before the state moves on. After the call, p1s[0] still needs the
-// previous thread's last p1 (set by the caller after the barrier).
-template <class OnCell>
-__device__ __forceinline__ void step_cells(Lanes& L, int q0, int ny, int topv,
+// previous thread's last p1 (set by the caller after the barrier). With
+// EDGES false the caller knows that none of the thread's lanes is lane 0 or
+// lane inj_q, and the step skips both tests.
+template <bool EDGES = true, int N, class OnCell>
+__device__ __forceinline__ void step_cells(LanesN<N>& L, int q0, int ny, int topv,
                                            int inj_q, int inj_v, int pxy,
                                            int pgap, OnCell on_cell) {
 #pragma unroll
-  for (int c = CELLS - 1; c > 0; --c) L.yd[c] = L.yd[c - 1];
+  for (int c = N - 1; c > 0; --c) L.yd[c] = L.yd[c - 1];
   L.yd[0] = ny;
 #pragma unroll
-  for (int c = CELLS - 1; c >= 0; --c) {
+  for (int c = N - 1; c >= 0; --c) {
     const int q = q0 + c;
     const bool match = L.x[c] == L.yd[c];
     const int t1 = L.p2s[c] + (match ? 0 : pxy);
     const int t2 = min(L.p1[c], L.p1s[c]) + pgap;
     int cur = min(t1, t2);
-    if (q == 0) cur = topv;
-    if (q == inj_q) cur = inj_v;
+    if (EDGES && q == 0) cur = topv;
+    if (EDGES && q == inj_q) cur = inj_v;
     on_cell(c, q, cur, match, t1, t2, L.p1s[c], L.p1[c]);
     L.p2s[c] = L.p1s[c];
     L.p1[c] = cur;
-    if (c + 1 < CELLS) L.p1s[c + 1] = cur;
+    if (c + 1 < N) L.p1s[c + 1] = cur;
   }
 }
 

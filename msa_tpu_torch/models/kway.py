@@ -132,7 +132,7 @@ class KWayAligner:
 
             return align_pairs_batched(
                 genes, pairs, pw.pxy, pw.pgap, device=dev, rb=pw.config.rb,
-                snap_k=pw.config.snap_k, on_result=cb,
+                snap_k=pw.config.snap_k, on_result=cb, config=pw.config,
             )
 
         devs = local_devices(pw.config)  # at most config.local_devices

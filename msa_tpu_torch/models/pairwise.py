@@ -105,7 +105,7 @@ class PairwiseAligner:
 
             return align_pairs_batched(
                 [x, y], [(0, 1)], self.pxy, self.pgap, device=self.device,
-                rb=self.config.rb, snap_k=self.config.snap_k,
+                rb=self.config.rb, snap_k=self.config.snap_k, config=self.config,
             )[0]
         return align_host(x, y, self.pxy, self.pgap, self.backend)
 

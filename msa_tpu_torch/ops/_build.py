@@ -36,8 +36,8 @@ SIGNATURES = {
     #           pxy, pgap, score, rows, snaps, progress, tickets, blocks, stream)
     "band_fill": [P, LL, P, P, I, I, I, I, I, I, P, P, P, P, P, ctypes.POINTER(I), P],
     # walk(genes, stride, params, bands, num_pairs, rb, snap_k, pxy, pgap,
-    #      rows, snaps, dirs, moves, counts, stream)
-    "walk": [P, LL, P, P, I, I, I, I, I, P, P, P, P, P, P],
+    #      rows, snaps, moves, counts, stream)
+    "walk": [P, LL, P, P, I, I, I, I, I, P, P, P, P, P],
     # conveyor_fill(genes, stride, sweeps, bands, events, num_sweeps, rb,
     #               snap_k, ymax, pxy, pgap, c0, c1, score, brow, snaps,
     #               carry, stream)

@@ -146,6 +146,25 @@ def to_card(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(array).pin_memory().to(device, non_blocking=True)
 
 
+def device_budget(device: torch.device, hbm_budget: int = 0) -> int:
+    """Device bytes the buffers of a pipeline's fill and walk may take.
+
+    Both device pipelines split their work under it (``ops/batch.py`` in
+    waves, ``ops/conveyor.py`` in halves). ``hbm_budget`` when set; on a card
+    75 % of what can still be allocated, read anew at each call: the free
+    memory plus what PyTorch's allocator holds unused (the JAX package kept
+    25 % headroom for feeds and walk buffers); else 12 GiB, the JAX package's
+    figure for a device that reports nothing.
+    """
+    if hbm_budget:
+        return hbm_budget
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+        return int(free * 0.75)
+    return 12 << 30
+
+
 def band_fill(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillState:
     """Fill every pair of ``plan``; on the card through the CUDA kernel."""
     if table.dtype != torch.uint8 or table.dim() != 2:

@@ -1,26 +1,67 @@
-"""The device pipeline for a list of pairs: one fill launch, one walk launch.
+"""The banded device pipeline for a list of pairs, in memory-bounded waves.
 
 Port of ``msa_tpu/ops/batch.py::align_pairs_batched``. The gene table goes
-to the device once as uint8 codes. One fill launch covers every pair (each
-band a work item of its persistent grid) and one walk launch traces every
-pair. The scores, move
-words and move counts come back in one fetch each, and the host turns each
-pair's moves into its alignment strings: ``decode_moves`` ->
-``moves_to_alignment``. Everything the JAX version did to serve one compiled
-TPU program (static caps, band-count buckets, P_GROUP pairs on the
-sublanes, feed buffers laid out for aligned DMA) has no counterpart here:
-the kernels take every size at run time.
+to the device once as uint8 codes. The pairs, largest (m + n) first so that
+the longest walks start earliest, are cut into waves whose device bytes
+(``pair_bytes``: snapshots, boundary rows, score, move words and count) fit
+half of ``device_budget``, read anew before each wave: two waves are in
+flight at once. However large the budget, a wave takes at most about half
+the pairs' bytes (``HALVES``), so that the first half's walk and host decode
+run beside the second half's fill. Each wave is one fill launch (every band
+of every pair a work item of the persistent grid) on the current stream and
+one walk launch on a second stream, so wave w walks while wave w + 1 fills.
+A wave's scores, move words and counts come back by non-blocking copies
+after an event, and ``decode_workers`` host threads turn each pair's moves
+into its alignment strings (``decode_moves`` -> ``moves_to_alignment``). A
+wave's pairs go to the decoders before the next walk is launched, so a
+failing launch loses none of them (the JAX package journaled per group of 8
+pairs the same way).
+
+Everything the JAX version did to serve one compiled TPU program (static
+caps, band-count buckets, P_GROUP pairs on the sublanes, feed buffers laid
+out for aligned DMA) has no counterpart here: the kernels take every size
+at run time.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from msa_tpu_torch.config import TorchConfig
 from msa_tpu_torch.utils.alignment import moves_to_alignment
-from msa_tpu_torch.ops.band_fill import band_fill, gene_table, plan_pairs
+from msa_tpu_torch.ops.band_fill import (
+    P_M,
+    P_N,
+    P_NB,
+    P_S,
+    Plan,
+    band_fill,
+    device_budget,
+    gene_table,
+    plan_pairs,
+)
 from msa_tpu_torch.ops.walk import banded_walk_plan, pair_moves, walk
+
+
+# However large the budget, a wave takes at most 1 / HALVES of the device
+# pairs' bytes plus the largest pair's. big13 on an H100
+# ("NVIDIA H100 80GB HBM3, 700.00 W"; chip_smoke.py's big13_waves, PERF.md)
+# took 0.325-0.352 s end to end in two waves, 0.383-0.432 s in one and
+# 0.380-0.396 s in five over three calls (a fourth overlapped: two 0.345,
+# 0.408 s; one 0.403, 0.415 s): in one wave the host decodes all 78 pairs
+# after the device is done, in five each fill drains the card's grid alone.
+HALVES = 2
+
+
+def pair_bytes(plan: Plan) -> np.ndarray:
+    """(P,) device bytes of each pair of ``plan``, all int32: its snapshots,
+    boundary rows, score, move words and move count."""
+    m, n, nb, s = (plan.params[:, c] for c in (P_M, P_N, P_NB, P_S))
+    return 4 * (nb * s * 3 * (plan.rb + 1) + (nb - 1) * n + 1 + -(-(m + n) // 16) + 1)
 
 
 def align_pairs_batched(
@@ -33,27 +74,110 @@ def align_pairs_batched(
     rb: int,
     snap_k: int,
     on_result: Optional[Callable[[int, Tuple[int, str, str]], None]] = None,
+    config: Optional[TorchConfig] = None,
 ) -> List[Tuple[int, str, str]]:
     """(penalty, align1, align2) for each (x gene, y gene) pair, in order.
 
-    ``on_result(idx, triple)`` fires as each pair's alignment is decoded.
+    ``config`` gives the device budget (``hbm_budget``) and the decode
+    threads (``decode_workers``). ``on_result(idx, triple)`` fires once per
+    pair, with the caller's index, from a decode thread as the pair's
+    decode finishes. A pair whose bytes exceed half the budget raises
+    ``ValueError`` before any launch.
     """
-    if not pairs:
+    num = len(pairs)
+    if not num:
         return []
-    plan = plan_pairs([len(g) for g in genes], pairs, rb, snap_k)
-    wplan = banded_walk_plan(plan)
-    table = torch.from_numpy(gene_table(genes)).to(device)
-    fill = band_fill(table, plan, pxy, pgap)
-    words_d, counts_d = walk(table, wplan, fill.rows, fill.snaps, pxy, pgap)
-    scores = fill.score.cpu().numpy()
-    words = words_d.cpu().numpy()
-    counts = counts_d.cpu().numpy()
+    config = config or TorchConfig()
+    lengths = [len(g) for g in genes]
+    order = sorted(range(num), key=lambda idx: -(lengths[pairs[idx][0]] + lengths[pairs[idx][1]]))
+    sizes = pair_bytes(plan_pairs(lengths, [pairs[idx] for idx in order], rb, snap_k)).tolist()
 
-    out: List[Tuple[int, str, str]] = []
-    for idx, (xg, yg) in enumerate(pairs):
-        moves = pair_moves(words, counts, wplan, idx)
-        a1, a2 = moves_to_alignment(genes[xg], genes[yg], moves)
-        out.append((int(scores[idx]), a1, a2))
+    def over(r: int, budget: int) -> ValueError:
+        xg, yg = pairs[order[r]]
+        return ValueError(
+            f"pair ({xg}, {yg}) of {lengths[xg]} x {lengths[yg]} needs {sizes[r] / 2**30:.2f} GiB"
+            f" on the device (rb={rb}, snap_k={snap_k}), over half the"
+            f" {budget / 2**30:.2f} GiB budget (two waves are in flight)"
+        )
+
+    budget = device_budget(device, config.hbm_budget)
+    biggest = max(range(num), key=sizes.__getitem__)
+    if sizes[biggest] > budget // 2:
+        raise over(biggest, budget)
+    share = -(-sum(sizes) // HALVES) + sizes[biggest]
+
+    table = torch.from_numpy(gene_table(genes)).to(device)
+    on_card = device.type == "cuda"
+    fill_stream = torch.cuda.current_stream(device) if on_card else None
+    walk_stream = torch.cuda.Stream(device) if on_card else None
+
+    def launch_walk(wave, wplan, fill):
+        """The wave's walk (on the second stream on a card) and its fetch."""
+        if not on_card:
+            words, counts = walk(table, wplan, fill.rows, fill.snaps, pxy, pgap)
+            return wave, wplan, (words, counts, fill.score), None, fill
+        walk_stream.wait_stream(fill_stream)
+        with torch.cuda.stream(walk_stream):
+            words, counts = walk(table, wplan, fill.rows, fill.snaps, pxy, pgap)
+            fetched = [t.to("cpu", non_blocking=True) for t in (words, counts, fill.score)]
+            done = torch.cuda.Event()
+            done.record()
+        # The wave's device buffers stay referenced (by ``fill``) until its
+        # walk is collected, so the allocator cannot hand them out before.
+        return wave, wplan, fetched, done, fill
+
+    def decode(idx, words, counts, wplan, p, score):
+        xg, yg = pairs[idx]
+        a1, a2 = moves_to_alignment(genes[xg], genes[yg], pair_moves(words, counts, wplan, p))
+        triple = (int(score), a1, a2)
         if on_result is not None:
-            on_result(idx, out[-1])
+            on_result(idx, triple)
+        return triple
+
+    out: List[Tuple[int, str, str]] = [None] * num  # type: ignore
+    futures = []
+    with ThreadPoolExecutor(max_workers=max(1, config.decode_workers)) as pool:
+
+        def collect(launched):
+            wave, wplan, fetched, done, _ = launched
+            if done is not None:
+                done.synchronize()  # this wave's walk and fetch only
+            words, counts, scores = (t.numpy() for t in fetched)
+            for p, r in enumerate(wave):
+                idx = order[r]
+                futures.append((idx, pool.submit(decode, idx, words, counts, wplan, p, scores[p])))
+
+        def wave_end(start):
+            cap = min(device_budget(device, config.hbm_budget) // 2, share)
+            end, total = start, 0
+            while end < num and total + sizes[end] <= cap:
+                total += sizes[end]
+                end += 1
+            return end
+
+        pending = None
+        start = 0
+        while start < num:
+            end = wave_end(start)
+            if end == start and pending is not None:
+                # The next pair does not fit beside the wave in flight:
+                # finish that wave and read the budget again.
+                collect(pending)
+                pending = None
+                end = wave_end(start)
+            if end == start:
+                raise over(start, device_budget(device, config.hbm_budget))
+            wave = list(range(start, end))
+            plan = plan_pairs(lengths, [pairs[order[r]] for r in wave], rb, snap_k)
+            fill = band_fill(table, plan, pxy, pgap)
+            # The previous wave walks beside this fill; its pairs go to the
+            # decoders before the next walk is launched.
+            if pending is not None:
+                collect(pending)
+            pending = launch_walk(wave, banded_walk_plan(plan), fill)
+            start = end
+        if pending is not None:
+            collect(pending)
+        for idx, fut in futures:
+            out[idx] = fut.result()
     return out

@@ -11,12 +11,12 @@ b + 1 of a pair reads band b's bottom row (harvested from lane rb into the
 every K steps serves the traceback of every band resident at that step.
 
 Host planner (copied, the JAX module imports jax at the top): ``BandPlan``,
-``ConveyorPlan``, ``plan_conveyor``, ``plan_workload``,
-``plan_snapshot_bytes`` and ``hbm_snapshot_budget`` (free device memory from
-``torch.cuda.mem_get_info``). The stagger rules and the score-event deferral
-are kept verbatim, so for a workload the JAX planner accepts, the band
-starts, brow slots, orientation and ``pair_ready`` are the JAX ones. Dropped,
-because only the TPU needs them:
+``ConveyorPlan``, ``plan_conveyor``, ``plan_workload`` and
+``plan_snapshot_bytes``; the device-memory budget is
+``band_fill.py::device_budget``, which both pipelines share. The stagger
+rules and the score-event deferral are kept verbatim, so for a workload the
+JAX planner accepts, the band starts, brow slots, orientation and
+``pair_ready`` are the JAX ones. Dropped, because only the TPU needs them:
 
 - the 4-band cap per pair: the Pallas walk's params held 4 bands in cols
   8..15; the port's walk reads a band table of any length, and rb 7168 needs
@@ -69,6 +69,7 @@ from msa_tpu_torch.ops.band_fill import (
     NEG_FILL,
     X_SENTINEL,
     Y_SENTINEL,
+    device_budget,
     gene_table,
     to_card,
 )
@@ -516,21 +517,6 @@ def sweep_count(conveyors: int, num_pairs: int, device: torch.device) -> int:
     return max(1, min(conveyors, num_pairs))
 
 
-def hbm_snapshot_budget(device: torch.device, hbm_budget: int = 0) -> int:
-    """Device bytes the conveyor's snapshots may take.
-
-    ``hbm_budget`` when set; on a card 75 % of its free memory (the JAX
-    package's headroom for brow, feeds and walk buffers); else 12 GiB, the
-    JAX package's figure for a device that reports nothing.
-    """
-    if hbm_budget:
-        return hbm_budget
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return int(free * 0.75)
-    return 12 << 30
-
-
 def align_pairs_conveyor(
     genes: Sequence[str],
     pairs: Sequence[Tuple[int, int]],
@@ -547,7 +533,7 @@ def align_pairs_conveyor(
     ranges; after each, one walk launch traces the pairs whose
     ``pair_ready`` chunk the fill has passed, and the host decodes them on
     ``config.decode_workers`` threads while the next segment fills.
-    Workloads whose snapshots exceed ``hbm_snapshot_budget`` are split in
+    Workloads whose snapshots exceed ``device_budget`` are split in
     two halves (recursively). ``on_result(idx, triple)`` fires once per pair
     as its decode finishes, from a decode thread, so a journal keeps every
     pair decoded before a failure.
@@ -558,7 +544,7 @@ def align_pairs_conveyor(
     rb, K = config.rb_conveyor, config.snap_k
     wl = plan_sweeps(genes, pairs, rb, K, sweep_count(config.conveyors, num, device))
 
-    budget = hbm_snapshot_budget(device, config.hbm_budget)
+    budget = device_budget(device, config.hbm_budget)
     if wl.snapshot_bytes > budget:
         if num < 2:
             raise ValueError(

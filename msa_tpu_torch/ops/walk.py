@@ -1,10 +1,11 @@
 """Exact traceback walk: the CUDA kernel, its plain version, and the decode.
 
 Port of ``msa_tpu/ops/pallas_walk.py::_walk_call``. From (m, n) each pair's
-walk goes back segment by segment: it recomputes the snap_k diagonals of the
-current segment in a window of W = min(snap_k + 128, rb + 1) lanes, seeded by
-the fill's snapshot (``band_fill``), and follows the moves until it leaves
-the segment or the band. It stops at the first cell with i == 0 or j == 0.
+walk goes back segment by segment: it recomputes the current segment's
+steps, up to snap_k diagonals, in a window of W = min(snap_k, rb + 1)
+lanes that follows the cone the walk can reach (``segment``), seeded by the
+fill's snapshot (``band_fill``), and follows the moves until it leaves the
+segment or the band. It stops at the first cell with i == 0 or j == 0.
 
 Move codes are 0 match, 1 substitution, 2 up, 3 left, with the tie-break
 match -> diagonal -> up -> left (left before up for a pair with ``swap`` = 1,
@@ -20,7 +21,9 @@ row holds column j at ``rows[row_base + j]`` (band 0's top is analytic).
 ``ops/conveyor.py`` the conveyor's, so one walk serves both fills.
 
 ``walk`` launches ``csrc/walk.cu`` for CUDA tensors and runs ``walk_ref``
-for CPU tensors; any other device raises.
+for CPU tensors; any other device raises. The kernel keeps a segment's
+reachable directions in shared memory (``walk_shared_bytes``), so a snap_k
+whose cone does not fit a block raises on every device.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from msa_tpu_torch.config import CELLS_PER_THREAD, MAX_RB
 from msa_tpu_torch.ops.band_fill import NEG_FILL, X_SENTINEL, Y_SENTINEL, Plan, to_card
 
 # Columns of the per-pair table and of the band table (csrc/walk.cu keeps
@@ -40,6 +42,15 @@ from msa_tpu_torch.ops.band_fill import NEG_FILL, X_SENTINEL, Y_SENTINEL, Plan, 
 W_M, W_N, W_XG, W_YG, W_BAND0, W_MOVES_OFF, W_SWAP = range(7)
 WCOL = 7
 B_SNAP, B_ROW = range(2)
+# Lanes each thread of the walk kernel owns, threads of one walk block at
+# most (csrc/walk.cu, WALK_CELLS and WALK_THREADS), and the bytes of its
+# static shared arrays: two double-buffered int arrays of WALK_THREADS and
+# the broadcast (i, j).
+WALK_CELLS = 4
+WALK_THREADS = 512
+WALK_STATIC_SHARED = 2 * 2 * WALK_THREADS * 4 + 16
+# Shared memory a block may take on an H100 (sm_90), static and dynamic.
+BLOCK_SHARED_MAX = 232_448
 
 
 @dataclasses.dataclass
@@ -85,20 +96,57 @@ def banded_walk_plan(plan: Plan) -> WalkPlan:
 
 
 def window(plan) -> int:
-    """Lanes the walk recomputes per segment."""
-    return min(plan.snap_k + 128, plan.rb + 1)
+    """Lanes the walk recomputes per segment: the entry lane and the lanes
+    below it that the walk can reach, at most."""
+    return min(plan.snap_k, plan.rb + 1)
 
 
 def segment(i: int, j: int, rb: int, snap_k: int, lanes: int, win: int):
-    """(band, i0, q, dl0, w0, steps) of the segment holding cell (i, j)."""
+    """(band, i0, q, dl0, w0, steps) of the segment holding cell (i, j).
+
+    The window starts ``steps - 1`` lanes below the entry lane q: the walk
+    drops at most a lane a step and the error of the unknown lanes below w0
+    climbs a lane a step, so at 0-based step t the walk reads lanes
+    >= w0 + t, which are exact (``msa_tpu/ops/pallas_walk.py:44-53``). It
+    is lowered if need be so that its ``win`` lanes stay in the band.
+    """
     b = (i - 1) // rb
     i0 = b * rb
     q = i - i0
     dl = q + j
     dl0 = (dl - 1) // snap_k * snap_k
-    w0 = 0 if q - snap_k <= 0 else (q - snap_k) // 128 * 128
-    w0 = min(w0, lanes - win)
-    return b, i0, q, dl0, w0, dl - dl0
+    steps = dl - dl0
+    w0 = min(max(q - steps + 1, 0), lanes - win)
+    return b, i0, q, dl0, w0, steps
+
+
+def cone_row(u: int) -> int:
+    """First granule of row u of the kernel's shared cone.
+
+    A granule holds a thread's directions on one step, 2 bits for each of
+    its WALK_CELLS lanes. Row u (u steps back from a segment's entry step)
+    holds the u // WALK_CELLS + 2 granules of the threads that own lanes
+    q - u .. q; rows 0 .. u - 1 come before it (csrc/walk.cu, cone_row).
+    """
+    a = u // WALK_CELLS
+    return 2 * u + WALK_CELLS * a * (a - 1) // 2 + a * (u % WALK_CELLS)
+
+
+def walk_shared_bytes(snap_k: int) -> int:
+    """Dynamic shared memory of one walk block: the cone of a full segment."""
+    return WALK_CELLS // 4 * cone_row(snap_k)
+
+
+def check_walk_geometry(rb: int, snap_k: int) -> None:
+    """Raise unless the kernel takes this band height and segment length."""
+    if snap_k < 1 or rb < 1:
+        raise ValueError(f"the walk needs positive rb and snap_k, got {rb}, {snap_k}")
+    need = walk_shared_bytes(snap_k) + WALK_STATIC_SHARED
+    if need > BLOCK_SHARED_MAX:
+        raise ValueError(
+            f"the walk's cone at snap_k={snap_k} needs {need} bytes of shared memory"
+            f" a block, over the {BLOCK_SHARED_MAX} an H100 block may take"
+        )
 
 
 def walk(
@@ -106,12 +154,11 @@ def walk(
     snaps: torch.Tensor, pxy: int, pgap: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trace every pair of ``plan``; returns (moves words, counts)."""
+    check_walk_geometry(plan.rb, plan.snap_k)
     if table.device.type == "cpu":
         return walk_ref(table, plan, rows, snaps, pxy, pgap)
     if table.device.type != "cuda":
         raise ValueError(f"walk runs on cuda or cpu, not {table.device}")
-    if window(plan) > MAX_RB + 1:
-        raise ValueError(f"the walk kernel takes at most {MAX_RB + 1} window lanes")
     from msa_tpu_torch.ops import _build
 
     lib = _build.load("walk")
@@ -122,19 +169,13 @@ def walk(
             raise ValueError("fill state must be contiguous int32 on the table's device")
     params = to_card(plan.pairs, dev)
     bands = to_card(plan.bands, dev)
-    threads = -(-window(plan) // CELLS_PER_THREAD)
-    threads = -(-threads // 32) * 32
-    dirs = torch.empty(
-        plan.num_pairs * plan.snap_k * threads * CELLS_PER_THREAD,
-        dtype=torch.uint8, device=dev,
-    )
     moves = torch.zeros(max(plan.moves_len, 1), dtype=torch.int32, device=dev)
     counts = torch.zeros(plan.num_pairs, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.walk(
         table.data_ptr(), table.stride(0), params.data_ptr(), bands.data_ptr(),
         plan.num_pairs, plan.rb, plan.snap_k, pxy, pgap, rows.data_ptr(),
-        snaps.data_ptr(), dirs.data_ptr(), moves.data_ptr(),
+        snaps.data_ptr(), moves.data_ptr(),
         counts.data_ptr(), ctypes.c_void_p(stream),
     )
     _build.check("walk", err)
@@ -243,6 +284,26 @@ def pair_moves(words: np.ndarray, counts: np.ndarray, plan: WalkPlan, p: int) ->
     off = int(plan.pairs[p, W_MOVES_OFF])
     cnt = int(counts[p])
     return decode_moves(words[None, off : off + -(-cnt // 16)], counts[p : p + 1])
+
+
+def walk_segments(m: int, n: int, moves: np.ndarray, rb: int, snap_k: int) -> np.ndarray:
+    """(steps, entry lane) of each segment a pair's walk recomputes, in order.
+
+    Replays the backward move stream from (m, n): the walk recomputes one
+    segment for each run of cells with the same band and snapshot segment
+    (both only fall along the path), ``steps`` diagonals deep with its entry
+    cell on lane q of the band.
+    """
+    mv = np.asarray(moves, np.int64)
+    i = m - np.concatenate([[0], np.cumsum(mv <= 2)[:-1]])
+    j = n - np.concatenate([[0], np.cumsum(mv != 2)[:-1]])
+    b = (i - 1) // rb
+    q = i - b * rb
+    dl = q + j
+    seg = (dl - 1) // snap_k
+    first = np.ones(len(mv), bool)
+    first[1:] = (b[1:] != b[:-1]) | (seg[1:] != seg[:-1])
+    return np.stack([dl[first] - seg[first] * snap_k, q[first]], axis=1)
 
 
 def decode_moves(words: np.ndarray, counts: np.ndarray) -> np.ndarray:

@@ -17,6 +17,7 @@ from msa_tpu_torch.ops.reference import nw_align_numpy
 from msa_tpu_torch.config import TorchConfig
 from msa_tpu_torch.ops import band_fill as bf
 from msa_tpu_torch.ops import conveyor as cv
+from msa_tpu_torch.ops import batch
 from msa_tpu_torch.ops import walk as wk
 from msa_tpu_torch.ops.batch import align_pairs_batched
 
@@ -70,6 +71,48 @@ def test_pipeline_on_card_matches_oracle(card):
     genes = _genes(9, [1500, 1300, 900])
     pairs = [(1, 0), (2, 0), (2, 1)]
     got = align_pairs_batched(genes, pairs, 3, 2, device=card, rb=511, snap_k=256)
+    for (i, j), res in zip(pairs, got):
+        assert res == nw_align_numpy(genes[i], genes[j], 3, 2)
+
+
+@pytest.mark.parametrize("layout,rb,snap_k", [
+    ("banded", 1023, 1024), ("banded", 100, 64), ("conveyor", 1024, 1024), ("conveyor", 128, 64)])
+def test_walk_equals_plain_version(card, layout, rb, snap_k):
+    """The shared-memory walk against ``walk_ref`` on both fill layouts;
+    the last two pairs are skewed (3,000 x 7 and 7 x 2,600)."""
+    genes = _genes(rb + snap_k, [2600, 2100, 900, 3000, 7])
+    pairs = [(0, 1), (2, 0), (3, 1), (3, 4), (4, 0)]
+    table = torch.from_numpy(bf.gene_table(genes)).to(card)
+    if layout == "banded":
+        plan = bf.plan_pairs([len(g) for g in genes], pairs, rb, snap_k)
+        fill = bf.band_fill(table, plan, 3, 2)
+        wplan, rows, snaps = wk.banded_walk_plan(plan), fill.rows, fill.snaps
+    else:
+        wl = cv.plan_sweeps(genes, pairs, rb, snap_k, conveyors=2)
+        state = cv.conveyor_fill(table, wl, 3, 2, 0, wl.max_chunks, cv.conveyor_state(wl, card))
+        wplan = cv.conveyor_walk_plan(wl, genes, range(wl.num_pairs))
+        rows, snaps = state.brow, state.snaps
+    words, counts = wk.walk(table, wplan, rows, snaps, 3, 2)
+    rwords, rcounts = wk.walk_ref(table, wplan, rows, snaps, 3, 2)
+    assert torch.equal(words, rwords) and torch.equal(counts, rcounts)
+
+
+def test_pipeline_in_waves_matches_oracle(card, monkeypatch):
+    genes = _genes(13, [1500, 1300, 900, 2000, 1100])
+    pairs = [(i, j) for i in range(5) for j in range(i)]
+    sizes = batch.pair_bytes(bf.plan_pairs([len(g) for g in genes], pairs, 511, 256))
+    cfg = TorchConfig(hbm_budget=2 * max(int(sizes.max()), int(sizes.sum()) // 4))
+    seen = []
+    real = batch.band_fill
+
+    def spy(table, plan, pxy, pgap):
+        seen.append(plan.num_pairs)
+        return real(table, plan, pxy, pgap)
+
+    monkeypatch.setattr(batch, "band_fill", spy)
+    got = batch.align_pairs_batched(genes, pairs, 3, 2, device=card, rb=511, snap_k=256,
+                                    config=cfg)
+    assert len(seen) >= 3 and sum(seen) == len(pairs)
     for (i, j), res in zip(pairs, got):
         assert res == nw_align_numpy(genes[i], genes[j], 3, 2)
 

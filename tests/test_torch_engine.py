@@ -173,7 +173,7 @@ def test_multi_device_split(monkeypatch, shards_seen, data_dir, fill_mode):
 
 def test_run_batched_keeps_input_order(monkeypatch):
     """Shards that finish in reverse order still come back in task order."""
-    def slow_first(genes, pairs, pxy, pgap, *, device, rb, snap_k, on_result=None):
+    def slow_first(genes, pairs, pxy, pgap, *, device, rb, snap_k, on_result=None, config=None):
         time.sleep(0.3 if (1, 0) in pairs else 0.0)
         out = [(10 * i + j, f"{i}", f"{j}") for i, j in pairs]
         for idx, triple in enumerate(out):
@@ -210,10 +210,16 @@ def test_local_devices(monkeypatch):
 # -- the journal repair ---------------------------------------------------------
 
 
-def _journal_workload():
+def _journal_workload(fill_mode):
+    """Four genes, six pairs, and a config that runs them in several walk
+    launches: the conveyor in four fill segments, the banded pipeline in
+    waves under a forced budget."""
     genes = _genes(23, [260, 190, 230, 150])
-    cfg = TorchConfig(rb_conveyor=64, snap_k=32, host_threshold=0, device="cpu",
-                      fill_mode="conveyor", fill_segments=4)
+    pairs = [(i, j) for i in range(1, 4) for j in range(i)]
+    sizes = batch.pair_bytes(bf.plan_pairs([len(g) for g in genes], pairs, 64, 32))
+    cfg = TorchConfig(rb=64, rb_conveyor=64, snap_k=32, host_threshold=0, device="cpu",
+                      fill_mode=fill_mode, fill_segments=4,
+                      hbm_budget=2 * max(int(sizes.max()), int(sizes.sum()) // 4))
     return Problem(pxy=3, pgap=2, genes=tuple(genes)), cfg
 
 
@@ -222,20 +228,23 @@ def _journal(path):
         return {rec["task_id"]: (rec["penalty"], rec["hash"]) for rec in map(json.loads, f)}
 
 
-def test_journal_keeps_pairs_decoded_before_a_failed_walk(tmp_path, monkeypatch):
-    problem, cfg = _journal_workload()
-    real_walk = conv.walk
+@pytest.mark.parametrize("fill_mode", ["conveyor", "banded"])
+def test_journal_keeps_pairs_decoded_before_a_failed_walk(tmp_path, monkeypatch, fill_mode):
+    problem, cfg = _journal_workload(fill_mode)
+    module = conv if fill_mode == "conveyor" else batch
+    real_walk = module.walk
     walked = []
 
     def counting(table, plan, *a):
         walked.append(plan.num_pairs)
         return real_walk(table, plan, *a)
 
-    monkeypatch.setattr(conv, "walk", counting)
+    monkeypatch.setattr(module, "walk", counting)
     clean = kway.KWayAligner(3, 2, config=cfg).align_tasks(
         problem.genes, pair_task_list(problem.k), checkpoint=str(tmp_path / "clean.jsonl"))
     launches, counts = len(walked), list(walked)
-    assert launches >= 2 and sum(counts) == problem.num_pairs
+    assert launches >= (2 if fill_mode == "conveyor" else 3)
+    assert sum(counts) == problem.num_pairs
 
     def failing_last(table, plan, *a):
         walked.append(plan.num_pairs)
@@ -244,7 +253,7 @@ def test_journal_keeps_pairs_decoded_before_a_failed_walk(tmp_path, monkeypatch)
         return real_walk(table, plan, *a)
 
     walked.clear()
-    monkeypatch.setattr(conv, "walk", failing_last)
+    monkeypatch.setattr(module, "walk", failing_last)
     path = str(tmp_path / "journal.jsonl")
     with pytest.raises(RuntimeError, match="walk launch failed"):
         kway.align_kway(problem, config=cfg, checkpoint=path)
@@ -255,7 +264,7 @@ def test_journal_keeps_pairs_decoded_before_a_failed_walk(tmp_path, monkeypatch)
 
     # The resumed run aligns only the rest and folds the uninterrupted chain.
     walked.clear()
-    monkeypatch.setattr(conv, "walk", counting)
+    monkeypatch.setattr(module, "walk", counting)
     resumed = kway.align_kway(problem, config=cfg, checkpoint=path)
     assert sum(walked) == problem.num_pairs - len(kept)
     want = kway.align_kway(problem, config=cfg)

@@ -49,7 +49,7 @@ def _problem(seed=42):
 
 @pytest.fixture
 def device_pairs(monkeypatch):
-    """Counts the pairs that enter the banded device pipeline."""
+    """Counts the pairs of each fill launch of the banded device pipeline."""
     seen = []
     real = batch.band_fill
 
@@ -67,7 +67,7 @@ def test_kway_matches_jax_package(device_pairs, rb, snap_k):
     cfg = TorchConfig(rb=rb, snap_k=snap_k, host_threshold=1, device="cpu", fill_mode="banded")
     got = align_kway(problem, config=cfg)
     want = jax_align_kway(problem, backend="numpy")
-    assert device_pairs == [10]  # all 10 pairs took fill + walk
+    assert sum(device_pairs) == 10  # all 10 pairs took fill + walk
     assert got.penalties == want.penalties
     assert got.chain_hash == want.chain_hash
 
@@ -79,7 +79,7 @@ def test_kway_threshold_splits_host_and_device(device_pairs):
     cfg = TorchConfig(rb=150, snap_k=128, host_threshold=cells[5], device="cpu",
                       fill_mode="banded")
     got = align_kway(problem, config=cfg)
-    assert device_pairs == [5]
+    assert sum(device_pairs) == 5
     want = jax_align_kway(problem, backend="numpy")
     assert (got.chain_hash, got.penalties) == (want.chain_hash, want.penalties)
 
@@ -90,7 +90,7 @@ def test_kway_checkpoint_resume(tmp_path, device_pairs):
     path = str(tmp_path / "journal.jsonl")
     first = align_kway(problem, config=cfg, checkpoint=path)
     again = align_kway(problem, config=cfg, checkpoint=path)
-    assert device_pairs == [10]  # the resumed run had nothing left to do
+    assert sum(device_pairs) == 10  # the resumed run had nothing left to do
     assert (again.chain_hash, again.penalties) == (first.chain_hash, first.penalties)
 
 
@@ -157,7 +157,7 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "msa_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "fill_ablation.py"]
+        REPO / "chip_smoke.py", REPO / "fill_ablation.py", REPO / "walk_ablation.py"]
     assert len(files) > 8
     for path in files:
         for name in _imports(path):

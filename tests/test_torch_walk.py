@@ -67,6 +67,42 @@ def test_walk_matches_jax(m, n, pxy, pgap):
     assert _port_align(x, y, pxy, pgap, 333, 64) == want
 
 
+@pytest.mark.parametrize(
+    "m,n,rb,snap_k,want_w0_zero",
+    [
+        # The walk enters segments within ``steps`` of the band top, so the
+        # window starts at lane 0 (w0 = 0) while the entry is above it.
+        (420, 380, 200, 64, True),
+        # snap_k > rb: the window is the whole band, w0 = 0 throughout.
+        (300, 340, 48, 128, True),
+    ],
+)
+def test_walk_cone_window(monkeypatch, m, n, rb, snap_k, want_w0_zero):
+    """The window that follows the cone, in the geometries where it is
+    clamped, against the Pallas walk and the numpy oracle."""
+    from msa_tpu_torch.ops import walk as wk
+
+    seen = []
+    real = wk.segment
+
+    def spy(i, j, *a):
+        out = real(i, j, *a)
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(wk, "segment", spy)
+    rng = np.random.default_rng(m * n + rb)
+    x, y = _rand_seq(rng, m), _rand_seq(rng, n)
+    want = _jax_align(x, y, 3, 2)
+    assert want == nw_align_numpy(x, y, 3, 2)
+    assert _port_align(x, y, 3, 2, rb, snap_k) == want
+    # (band, i0, q, dl0, w0, steps): entries at lane q >= 1 whose window
+    # starts at 0 below the cone's edge q - steps + 1.
+    clamped = [s for s in seen if s[4] == 0 and 1 <= s[2] and s[2] - s[5] + 1 < 0]
+    assert bool(clamped) == want_w0_zero
+    assert any(s[4] > 0 for s in seen) == (snap_k <= rb)
+
+
 def test_walk_repetitive_matches_jax():
     """Repetitive sequences maximize tie-breaking pressure in the walk."""
     x = "ACAC" * 80 + "GG" + "ACAC" * 20
@@ -121,7 +157,7 @@ def test_walk_skewed_pairs():
         assert res == nw_align_numpy(genes[i], genes[j], 3, 2), (i, j)
 
 
-@pytest.mark.parametrize("rb,snap_k", [(100, 64), (1024, 1024)])
+@pytest.mark.parametrize("rb,snap_k", [(100, 64), (1024, 1024), (48, 128)])
 def test_walk_swap_transposed_pairs(rb, snap_k):
     """Pairs filled transposed and walked with swap = 1 give, swapped back,
     the original orientation's alignment (the up/left tie-break flips)."""
