@@ -289,13 +289,14 @@ def check_fill(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
               bound_ms=band_fill_bound(genes, pairs, plan)[0])
 
 
-def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=False,
-                        pxy=3, pgap=2):
+def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, conveyors=1,
+                        split_ramp=False, pxy=3, pgap=2):
     """The conveyor fill and the walk on its layout against their plain versions.
 
-    ``split_ramp``: fail unless a segment boundary lands inside a band's ramp.
+    ``conveyors``: sweeps the bands are placed on (a pair's bands chain
+    across them). ``split_ramp``: fail unless a segment boundary lands
+    inside a band's ramp.
     """
-    import numpy as np
     import torch
 
     from msa_tpu_torch.native import nw_align_native
@@ -305,8 +306,12 @@ def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=Fal
     from msa_tpu_torch.ops import walk as wk
     from msa_tpu_torch.state import valid_brow_cells, valid_conveyor_cells
 
-    wl = cv.plan_sweeps(genes, pairs, rb, snap_k, conveyors=1)
-    plan = wl.sweeps[0]
+    wl = cv.plan_sweeps(genes, pairs, rb, snap_k, conveyors)
+    plan = wl.plan
+    # Bands whose producer lies on another sweep: their top rows cross SMs.
+    cross = sum(1 for bp in plan.bands if bp.brow_in and plan.bands[bp.brow_in - 1].sweep != bp.sweep)
+    if conveyors > 1 and (wl.num_sweeps != conveyors or not cross):
+        raise AssertionError(f"{name}: {wl.num_sweeps} sweeps, {cross} cross-sweep bands")
     table = torch.from_numpy(bf.gene_table(genes)).cuda()
     n_seg = -(-wl.max_chunks // segments)
     ranges = [(c0, min(c0 + n_seg, wl.max_chunks)) for c0 in range(0, wl.max_chunks, n_seg)]
@@ -325,8 +330,8 @@ def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=Fal
     got = fill(cv.conveyor_fill)
     ref, fill_plain_ms = host_ms(lambda: fill(cv.conveyor_fill_ref))
     fill_ms = cuda_ms(lambda: fill(cv.conveyor_fill), reps=3)
-    snaps_ok = torch.from_numpy(valid_conveyor_cells(plan).reshape(-1)).cuda()
-    brow_ok = torch.from_numpy(valid_brow_cells(plan).reshape(-1)).cuda()
+    snaps_ok = torch.from_numpy(valid_conveyor_cells(wl)).cuda()
+    brow_ok = torch.from_numpy(valid_brow_cells(wl)).cuda()
     fill_err = max(
         (got.score - ref.score).abs().max().item(),
         (got.brow - ref.brow)[brow_ok].abs().max().item(),
@@ -335,9 +340,12 @@ def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=Fal
     if fill_err != 0:
         raise AssertionError(f"{name}: conveyor fill differs from conveyor_fill_ref by {fill_err}")
     phase("conveyor_fill_vs_plain", case=name, pairs=wl.num_pairs, transposed=sum(wl.swapped),
-          rb=rb, snap_k=snap_k, bands=len(plan.bands), chunks=plan.n_chunks,
-          segments=len(ranges), segment_boundary_in_a_ramp=ramp_split,
-          max_abs_err=fill_err, all_entries_equal=torch.equal(got.snaps, ref.snaps),
+          rb=rb, snap_k=snap_k, bands=len(plan.bands), sweeps=wl.num_sweeps,
+          cross_sweep_bands=cross, chunks=plan.n_chunks, segments=len(ranges),
+          segment_boundary_in_a_ramp=ramp_split, max_abs_err=fill_err,
+          all_entries_equal=all(torch.equal(a, b) for a, b in (
+              (got.snaps, ref.snaps), (got.brow, ref.brow), (got.carry, ref.carry))),
+          progress=got.progress.tolist() == [c * snap_k for c in plan.sweep_chunks],
           ms=fill_ms, plain_ms=fill_plain_ms)
 
     wplan = cv.conveyor_walk_plan(wl, genes, range(wl.num_pairs))
@@ -357,7 +365,7 @@ def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, split_ramp=Fal
         i, j = pairs[wl.order[g]]
         if (int(scores[g]), ax, ay) != nw_align_native(genes[i], genes[j], pxy, pgap):
             raise AssertionError(f"{name}: pair ({i}, {j}) alignment differs from the host oracle")
-    phase("conveyor_walk_vs_plain", case=name, moves=[int(c) for c in counts],
+    phase("conveyor_walk_vs_plain", case=name, sweeps=wl.num_sweeps, moves=[int(c) for c in counts],
           max_abs_err=walk_err, alignments="swapped back, equal to nw_align_native",
           ms=walk_ms, plain_ms=walk_plain_ms)
     out_ints = got.score.numel() + got.brow.numel() + got.snaps.numel()
@@ -688,6 +696,112 @@ def fill_mode_ab(banded, conveyor, smi):
           faster=min(seconds, key=lambda k: sorted(seconds[k])[1]), card=smi)
 
 
+def conveyor_sweep_choice(genes, pairs, conveyor, resident, default, smi, conveyor_kernels,
+                          fill_fields):
+    """big13 under fill_mode=conveyor with every resident sweep (one an SM
+    at rb_conveyor 7168) and with 16 and 32 SMs left to the walks of the
+    segments before (the default): the fill and the walk alone, then end to
+    end in turns, three runs each."""
+    import statistics
+
+    from msa_tpu_torch.config import TorchConfig
+    from msa_tpu_torch.ops import conveyor as cv
+
+    cfg = TorchConfig()
+    counts = [resident, resident - 16, resident - 32]
+    for count in counts:
+        wl = cv.plan_sweeps(genes, pairs, cfg.rb_conveyor, cfg.snap_k, count)
+        fill_ms, walk_ms, _ = conveyor_kernels(wl)
+        phase("big13_conveyor_sweeps", conveyors=count, **fill_fields(wl, fill_ms), walk_ms=walk_ms,
+              card=smi)
+    seconds = {count: [] for count in counts}
+    for count in counts + counts[::-1] + counts:
+        with port_env(fill_mode="conveyor", conveyors=count):
+            s, _, _ = run_big13(conveyor)
+        seconds[count].append(s)
+    phase("big13_conveyor_sweeps_e2e", seconds=seconds, default=default,
+          median={c: statistics.median(s) for c, s in seconds.items()},
+          faster=min(counts, key=lambda c: statistics.median(seconds[c])), card=smi)
+
+
+def one_band_problem():
+    """The workload of ``scripts/gen_workload.py --k 48 --min-len 6000
+    --max-len 7168 --dist uniform --seed 0``, made the same way in-process:
+    48 sequences, so 1,128 pairs of one band each at either band height."""
+    import numpy as np
+
+    from msa_tpu_torch.utils.msaio import Problem
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(6000, 7168 + 1, size=48)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genes = tuple(alpha[rng.integers(0, 4, size=int(n))].tobytes().decode("ascii") for n in lengths)
+    return Problem(pxy=3, pgap=2, genes=genes)
+
+
+def one_band_ab(banded, conveyor, smi):
+    """The fill-mode A/B on a workload of one-band pairs, where the
+    conveyor's ramps should pay: banded and conveyor alternating, three runs
+    each, through ``align_kway``; both modes give the same chain hash and
+    penalties, and 4 pairs the native oracle's alignment. Records the fill
+    kernels' device time (CUDA events around each launch), the wall time and
+    the peak device memory."""
+    import statistics
+
+    import torch
+
+    from msa_tpu_torch.config import TorchConfig
+    from msa_tpu_torch.models.kway import align_kway
+    from msa_tpu_torch.native import nw_align_native
+    from msa_tpu_torch.ops import batch
+    from msa_tpu_torch.ops import conveyor as cv
+    from msa_tpu_torch.utils.tasks import pair_task_list
+
+    problem = one_band_problem()
+    genes = problem.genes
+    tasks = pair_task_list(len(genes))
+    cells = sum(len(genes[t.i]) * len(genes[t.j]) for t in tasks)
+    modes = {"banded": (banded, batch, "band_fill"), "conveyor": (conveyor, cv, "conveyor_fill")}
+    runs = {mode: [] for mode in modes}
+    outputs = {}
+    for mode in ("banded", "conveyor", "conveyor", "banded", "banded", "conveyor"):
+        kernels, module, fill = modes[mode]
+        for fn in kernels.values():
+            fn.launches = fn.pairs = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with port_env(fill_mode=mode), launch_events(module, [fill]) as spans:
+            t0 = time.perf_counter()
+            res = align_kway(problem, backend="cuda", keep_alignments=True,
+                             config=TorchConfig.from_env())
+            seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        if min(launches.values()) < 1 or kernels[fill].pairs != len(tasks):
+            raise AssertionError(f"one-band {mode}: not all pairs on the kernels: {launches}")
+        outputs.setdefault(mode, (res.chain_hash, res.penalties))
+        if (res.chain_hash, res.penalties) != outputs[mode]:
+            raise AssertionError(f"one-band {mode}: the runs differ")
+        for t in (tasks[0], tasks[377], tasks[751], tasks[-1]):
+            r = res.pair_results[t.task_id]
+            want = nw_align_native(genes[t.i], genes[t.j], problem.pxy, problem.pgap)
+            if (r.penalty, r.align1, r.align2) != want:
+                raise AssertionError(f"one-band {mode}: task {t.task_id} differs from the native oracle")
+        run = {"seconds": seconds, "gcups": cells / seconds / 1e9,
+               "fill_ms": sum(a.elapsed_time(b) for a, b in spans[fill]),
+               "fill_launches": launches[fill], "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        runs[mode].append(run)
+        phase("one_band_ab", fill_mode=mode, pairs=len(tasks), cells=cells,
+              hash_prefix=res.chain_hash[:16], oracle_pairs=4, **run, card=smi)
+    if outputs["banded"] != outputs["conveyor"]:
+        raise AssertionError("one-band: banded and conveyor give different outputs")
+    median = {mode: {k: statistics.median(r[k] for r in rs) for k in ("seconds", "fill_ms")}
+              for mode, rs in runs.items()}
+    phase("one_band_ab_summary", hash=outputs["banded"][0], median=median,
+          faster_e2e=min(median, key=lambda m: median[m]["seconds"]),
+          faster_fill=min(median, key=lambda m: median[m]["fill_ms"]), card=smi)
+
+
 @contextlib.contextmanager
 def launch_events(module, names):
     """Record a CUDA event before and after each call of ``module.<name>``,
@@ -706,6 +820,9 @@ def launch_events(module, names):
             end.record()
             spans[name].append((start, end))
             return out
+        # A wrapper defined in ``module`` counts its launches under its
+        # module name, which is this function while the block runs.
+        call.launches = call.pairs = 0
         return call
 
     for name in names:
@@ -714,7 +831,11 @@ def launch_events(module, names):
         yield spans
     finally:
         for name in names:
+            spy = getattr(module, name)
             setattr(module, name, real[name])
+            if hasattr(real[name], "launches"):
+                real[name].launches += spy.launches
+                real[name].pairs += spy.pairs
 
 
 def big13_waves(genes, pairs, banded, cfg, smi):
@@ -936,11 +1057,18 @@ def main() -> int:
     check_conveyor_case("multi_tenant", skew, skew_pairs, rb=1024, snap_k=cfg.snap_k,
                         segments=cfg.fill_segments, split_ramp=True)
     conv_geom = random_genes(rng, [20000, 15000, 17500])
+    check_conveyor_case("main_geometry", conv_geom, [(1, 0), (2, 0), (2, 1)], rb=cfg.rb_conveyor,
+                        snap_k=cfg.snap_k, segments=cfg.fill_segments)
+    # Bands chained across sweeps: the main geometry on 3 sweeps, and one
+    # pair of 12 bands (12,100 x 1,500 as oriented) on 4.
     conveyor_timed = check_conveyor_case(
-        "main_geometry", conv_geom, [(1, 0), (2, 0), (2, 1)], rb=cfg.rb_conveyor,
-        snap_k=cfg.snap_k, segments=cfg.fill_segments)
+        "main_geometry_3_sweeps", conv_geom, [(1, 0), (2, 0), (2, 1)], rb=cfg.rb_conveyor,
+        snap_k=cfg.snap_k, segments=cfg.fill_segments, conveyors=3)
+    check_conveyor_case("cross_sweep_12_bands", random_genes(rng, [12100, 4500]), [(0, 1)],
+                        rb=1024, snap_k=256, segments=cfg.fill_segments, conveyors=4)
 
-    # 6. big13 end to end on the card, conveyor fill (the slice's main path)
+    # 6. big13 end to end on the card, conveyor fill, at the default sweep
+    # count (every resident sweep but 32 SMs' worth) and at 26
     conveyor = {"conveyor_fill": cv.conveyor_fill, "walk": wk.walk}
     torch.cuda.reset_peak_memory_stats()
     conv_runs = []
@@ -949,19 +1077,20 @@ def main() -> int:
             seconds, conv_launches, conv_pairs = run_big13(conveyor)
             conv_runs.append(seconds)
     dev = torch.device("cuda")
-    wl = cv.plan_sweeps(genes, pairs, cfg.rb_conveyor, cfg.snap_k,
-                        cv.sweep_count(cfg.conveyors, len(pairs), dev))
+    resident = cv.resident_sweeps(cfg.rb_conveyor, cfg.snap_k, dev)
+    wl = cv.plan_sweeps(genes, pairs, cfg.rb_conveyor, cfg.snap_k, cv.conveyor_sweeps(cfg, dev))
     phase("big13_e2e", fill_mode="conveyor", hash=BIG13_HASH, penalties=len(BIG13_PENALTIES),
           seconds=conv_runs, gcups=[cells / t / 1e9 for t in conv_runs], cells=cells,
-          launches=conv_launches, device_pairs=conv_pairs, sweeps=len(wl.sweeps),
-          snapshot_bytes=wl.snapshot_bytes,
+          launches=conv_launches, device_pairs=conv_pairs, sweeps=wl.num_sweeps,
+          resident_sweeps=resident, snapshot_bytes=wl.snapshot_bytes,
           peak_device_bytes=torch.cuda.max_memory_allocated(), card=smi)
     with port_env(fill_mode="conveyor", conveyors=26):
         seconds26, launches26, pairs26 = run_big13(conveyor)
     wl26 = cv.plan_sweeps(genes, pairs, cfg.rb_conveyor, cfg.snap_k, 26)
     phase("big13_e2e", fill_mode="conveyor", conveyors=26, hash=BIG13_HASH,
           seconds=[seconds26], gcups=[cells / seconds26 / 1e9], launches=launches26,
-          device_pairs=pairs26, pairs_per_sweep=[len(p.pair_ready) for p in wl26.sweeps],
+          device_pairs=pairs26,
+          bands_per_sweep=np.bincount([bp.sweep for bp in wl26.plan.bands]).tolist(),
           snapshot_bytes=wl26.snapshot_bytes, card=smi)
 
     def conveyor_kernels(wl):
@@ -976,6 +1105,8 @@ def main() -> int:
                                  min(c0 + n_seg, wl.max_chunks), holder["state"])
 
         fill_ms = cuda_ms(fill_once, reps=1)
+        if holder["state"].score.tolist() != [BIG13_PENALTIES[i] for i in wl.order]:
+            raise AssertionError("big13 conveyor scores differ from the golden penalties")
         cplan = cv.conveyor_walk_plan(wl, genes, range(wl.num_pairs))
         args = (table, cplan, holder["state"].brow, holder["state"].snaps, problem.pxy, problem.pgap)
         walk_ms = cuda_ms(lambda: wk.walk(*args), reps=3)
@@ -983,21 +1114,35 @@ def main() -> int:
         del args, holder["state"]
         return fill_ms, walk_ms, work
 
+    conv_bound = fill_bound(genes, pairs, wl.snaps_len + wl.brow_len + len(pairs))
+
+    def fill_fields(wl, fill_ms, prefix=""):
+        """The fill's time beside its bound, and its steps: the global steps
+        of the launch (every sweep's chunks) and their cost."""
+        steps = wl.max_chunks * cfg.snap_k
+        busiest = max(c - f for f, c in zip(wl.plan.sweep_first, wl.plan.sweep_chunks))
+        return {prefix + "fill_ms": fill_ms, prefix + "share_of_bound": conv_bound[0] / fill_ms,
+                prefix + "sweeps": wl.num_sweeps, prefix + "fill_steps": steps,
+                prefix + "busiest_sweep_steps": busiest * cfg.snap_k,
+                prefix + "us_per_step": fill_ms * 1e3 / steps}
+
     conv_fill_ms, conv_walk_ms, conv_work = conveyor_kernels(wl)
     fill26_ms, walk26_ms, _ = conveyor_kernels(wl26)
-    walk_phase("conveyor", conv_walk_ms, conv_work, smi, sweeps=len(wl.sweeps),
+    walk_phase("conveyor", conv_walk_ms, conv_work, smi, sweeps=wl.num_sweeps,
                rb=cfg.rb_conveyor, snap_k=cfg.snap_k)
-    phase("big13_kernels", fill_mode="conveyor", sweeps=len(wl.sweeps), fill_ms=conv_fill_ms,
+    phase("big13_kernels", fill_mode="conveyor", **fill_fields(wl, conv_fill_ms),
           walk_ms=conv_walk_ms, fill_gcups=cells / conv_fill_ms / 1e6,
-          longest_sweep_steps=wl.max_chunks * cfg.snap_k,
+          bound_ms=conv_bound[0], before_ms=1599.5,
           rest_of_e2e_ms=min(conv_runs) * 1e3 - conv_fill_ms - conv_walk_ms,
-          sweeps26_fill_ms=fill26_ms, sweeps26_walk_ms=walk26_ms,
-          sweeps26_longest_sweep_steps=wl26.max_chunks * cfg.snap_k, card=smi)
+          **fill_fields(wl26, fill26_ms, "sweeps26_"), sweeps26_walk_ms=walk26_ms, card=smi)
     phase("big13_fill_modes", banded_seconds=runs, conveyor_seconds=conv_runs,
           conveyor26_seconds=[seconds26], banded_fill_ms=fill_ms, conveyor_fill_ms=conv_fill_ms,
           conveyor26_fill_ms=fill26_ms, card=smi)
+    conveyor_sweep_choice(genes, pairs, conveyor, resident, wl.num_sweeps, smi, conveyor_kernels,
+                          fill_fields)
     conformance("conveyor", cv.conveyor_fill)
     fill_mode_ab(banded, conveyor, smi)
+    one_band_ab(banded, conveyor, smi)
     with port_env(fill_mode="auto"):
         all_kernels = {"band_fill": bf.band_fill, "conveyor_fill": cv.conveyor_fill, "walk": wk.walk}
         for fn in all_kernels.values():

@@ -33,11 +33,12 @@ import subprocess
 import sys
 
 BASE_NEED = "const int need = min(n, c1);"
-BASE_CELL = "int cur = __viaddmin_s32(dg, x[c] == y[c] ? 0 : pxy, t2);"
+BASE_CELL = "b[c] = __viaddmin_s32(dg, x[c] == y[c] ? 0 : pxy, t2);"
+# (file in csrc/, anchor, replacement) of each variant.
 PATCHES = {
     "base": [],
-    "no_pipelining": [(BASE_NEED, "const int need = n;")],
-    "no_dpx": [(BASE_CELL, "int cur = min(dg + (x[c] == y[c] ? 0 : pxy), t2);")],
+    "no_pipelining": [("band_fill.cu", BASE_NEED, "const int need = n;")],
+    "no_dpx": [("common.cuh", BASE_CELL, "b[c] = min(dg + (x[c] == y[c] ? 0 : pxy), t2);")],
 }
 
 
@@ -47,15 +48,19 @@ def build(name, patches):
 
     out_dir = os.path.join(_build.BUILD, "ablation", name)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(_build.CSRC, "band_fill.cu")) as f:
-        src = f.read()
-    for old, new in patches:
-        if src.count(old) != 1:
-            raise AssertionError(f"{name}: the patch anchor {old!r} is not in the source once")
-        src = src.replace(old, new)
+    # A patched header in out_dir shadows the one in csrc/ (-I).
+    for fname in {"band_fill.cu"} | {f for f, _, _ in patches}:
+        with open(os.path.join(_build.CSRC, fname)) as f:
+            src = f.read()
+        for file, old, new in patches:
+            if file != fname:
+                continue
+            if src.count(old) != 1:
+                raise AssertionError(f"{name}: the patch anchor {old!r} is not in {fname} once")
+            src = src.replace(old, new)
+        with open(os.path.join(out_dir, fname), "w") as f:
+            f.write(src)
     cu = os.path.join(out_dir, "band_fill.cu")
-    with open(cu, "w") as f:
-        f.write(src)
     lib = os.path.join(out_dir, "libband_fill.so")
     nvcc = _build.nvcc_path()
     log = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", lib, cu],

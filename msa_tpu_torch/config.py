@@ -38,15 +38,16 @@ class TorchConfig:
     # "cpu" runs the pipeline through the kernels' plain versions.
     device: str = ""
     # Fill of the device pairs: "conveyor" (ops/conveyor.py: the bands of
-    # many pairs staggered through one sweep), "banded" (ops/batch.py: each
-    # band of each pair a work item, band after band across SMs) or "auto"
+    # many pairs staggered through concurrent sweeps, each pair's bands
+    # chained across them), "banded" (ops/batch.py: each band of each pair a
+    # work item, band after band across SMs) or "auto"
     # (models/kway.py::choose_fill_mode: banded).
     fill_mode: str = "auto"
     # Conveyor band height: a multiple of snap_k (band starts and snapshots
-    # stay K-aligned), and rb_conveyor + 1 lanes must fit one block (8,192).
+    # stay K-aligned), and rb_conveyor + 1 lanes must fit one block (8,192):
+    # a sweep is one thread block with a lane per row of the bands it holds.
     # Not the JAX package's 31744: that is one TensorCore's (R, 128) vector
-    # state; here a sweep is one thread block, and 7 * 1024 is the largest
-    # multiple of snap_k under its 8,192 lanes.
+    # state; 7 * 1024 is the largest multiple of snap_k under 8,192 lanes.
     rb_conveyor: int = 7168
     # Fill launches per conveyor workload (global chunk ranges); after each,
     # one walk launch covers the pairs the fill has finished.
@@ -59,8 +60,12 @@ class TorchConfig:
     # the conveyor's workload is split in halves; the banded pipeline runs
     # in waves of at most half of it each (ops/batch.py).
     hbm_budget: int = 0
-    # Concurrent conveyor sweeps (one thread block each); 0 means
-    # min(device pairs, SM count).
+    # Concurrent conveyor sweeps, one thread block each. A sweep holds the
+    # bands of many pairs one after another, and a pair's bands lie on
+    # several sweeps, each band waiting on its producer's sweep; so every
+    # sweep must be resident at once, and a count over what the card holds
+    # raises at the launch. 0 means every resident sweep but those of 32
+    # SMs, left to the walks (ops/conveyor.py::WALK_SMS).
     conveyors: int = 0
     # Pair schedule of the multi-process engine (parallel/engine.py):
     # "calibrated" (LPT over the cost model that process 0 measures on its

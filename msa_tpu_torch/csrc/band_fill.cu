@@ -48,12 +48,14 @@
 //   (staged in shared memory with sentinels, so no bounds test in the step)
 //   and the snapshot sit at the chunk boundary, with no % in the step. The
 //   ramp-in steps (dl <= rb, the left border enters lane dl) run in a loop of
-//   their own; the steady loop has no per-cell border, harvest or score
-//   test: the top lane is one uniform branch of thread 0, the harvest one of
-//   the thread that holds lane rb, the score is read after the last step.
-//   A cell is min(p2s + sub, min(p1, p1s) + pgap) with the DPX add-min
-//   (__viaddmin_s32). Steps go in pairs, with the two diagonals' register
-//   arrays trading roles, so no per-cell copy moves the state along.
+//   their own; no step has a per-cell border, harvest or score test: the top
+//   lane is one uniform branch of thread 0, the border one of the thread
+//   that holds lane dl, the harvest one of the thread that holds lane rb,
+//   the score is read after the last step. A cell is min(p2s + sub,
+//   min(p1, p1s) + pgap) with the DPX add-min (__viaddmin_s32). Steps go in
+//   pairs, with the two diagonals' register arrays trading roles, so no
+//   per-cell copy moves the state along (common.cuh::band_step, which the
+//   conveyor fill shares).
 //
 // Each thread owns CELLS consecutive lanes (common.cuh); lane q of the band
 // is row i0 + q and holds cell (i0 + q, dl - q) on local diagonal dl. Only
@@ -64,58 +66,6 @@
 
 // Longest chunk of steps (ops/band_fill.py keeps the same value).
 #define CHUNK_MAX 1024
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// Picks v[c] for a c known only at run time, without indexing the array
-// (which would move it to local memory).
-__device__ __forceinline__ int pick(const int (&v)[CELLS], int c) {
-  int r = v[0];
-#pragma unroll
-  for (int k = 1; k < CELLS; ++k) r = c == k ? v[k] : r;
-  return r;
-}
-
-// Local diagonal dl of this thread's lanes from a (diagonal dl - 1) and b
-// (dl - 2), written into b; x, y: the lanes' codes; e1, e2: the previous
-// thread's last lane on dl - 1 and dl - 2 (NEG_FILL for thread 0). Then the
-// hand-off: the last lane to the next thread through sh_p1, one barrier.
-template <bool kRamp>
-__device__ __forceinline__ void step(const int (&x)[CELLS], int (&y)[CELLS],
-                                     const int (&a)[CELLS], int (&b)[CELLS], int& e1,
-                                     int& e2, int& buf, int (*sh_p1)[MAX_THREADS],
-                                     int ny, int topv, int* harvest, int hc, int tid,
-                                     int q0, int dl, int inj, int pxy, int pgap) {
-#pragma unroll
-  for (int c = CELLS - 1; c > 0; --c) y[c] = y[c - 1];
-  y[0] = ny;
-  // Descending, so b[c - 1] still holds diagonal dl - 2 when lane c reads it.
-#pragma unroll
-  for (int c = CELLS - 1; c >= 0; --c) {
-    const int up = c ? a[c - 1] : e1;
-    const int dg = c ? b[c - 1] : e2;
-    const int t2 = min(up, a[c]) + pgap;
-    int cur = __viaddmin_s32(dg, x[c] == y[c] ? 0 : pxy, t2);
-    if (kRamp && q0 + c == dl) cur = inj;  // left border dp[i0 + dl][0]
-    b[c] = cur;
-  }
-  if (tid == 0) b[0] = topv;
-  if (!kRamp && harvest) *harvest = pick(b, hc);
-  buf ^= 1;
-  sh_p1[buf][tid] = b[CELLS - 1];
-  __syncthreads();
-  e2 = e1;
-  e1 = sh_p1[buf][tid ? tid - 1 : 0];
-  if (tid == 0) e1 = NEG_FILL;
-}
 
 template <bool kSnaps>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -191,18 +141,9 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
         sh_y[k] = (g >= 0 && g < n) ? (short)ys[g] : (short)Y_SENTINEL;
       }
       __syncthreads();
-      if (kSnaps && ci % per_snap == 0) {
-        int* snap = snap_b + (long long)(ci / per_snap) * 3 * lanes;
-#pragma unroll
-        for (int c = 0; c < CELLS; ++c) {
-          const int q = q0 + c;
-          if (q < lanes) {
-            snap[q] = d1[c];
-            snap[lanes + q] = c ? d1[c - 1] : e1;
-            snap[2 * lanes + q] = c ? d2[c - 1] : e2;
-          }
-        }
-      }
+      if (kSnaps && ci % per_snap == 0)
+        write_snapshot(snap_b + (long long)(ci / per_snap) * 3 * lanes, d1, d2, e1, e2, q0,
+                       lanes);
       // Lane q0 on diagonal dl reads y[dl - q0 - 1] = ysh[dl]; thread 0
       // takes dp[i0][dl] = topsh[dl].
       const short* ysh = sh_y + q0max - q0 - 1 - c0;
@@ -212,38 +153,32 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
       int dl = c0 + 1;
       const int ramp_hi = min(c1, rb);
       for (; dl < ramp_hi; dl += 2) {
-        step<true>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl], nullptr, hc, tid,
-                   q0, dl, (i0 + dl) * pgap, pxy, pgap);
-        step<true>(x, y, d2, d1, e1, e2, buf, sh_p1, ysh[dl + 1], topsh[dl + 1], nullptr,
-                   hc, tid, q0, dl + 1, (i0 + dl + 1) * pgap, pxy, pgap);
+        band_step<true, false>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl], nullptr,
+                               hc, tid, q0, dl, (i0 + dl) * pgap, nullptr, pxy, pgap);
+        band_step<true, false>(x, y, d2, d1, e1, e2, buf, sh_p1, ysh[dl + 1], topsh[dl + 1],
+                               nullptr, hc, tid, q0, dl + 1, (i0 + dl + 1) * pgap, nullptr,
+                               pxy, pgap);
       }
       if (dl == ramp_hi) {
-        step<true>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl], nullptr, hc, tid,
-                   q0, dl, (i0 + dl) * pgap, pxy, pgap);
-#pragma unroll
-        for (int c = 0; c < CELLS; ++c) {
-          const int t = d1[c];
-          d1[c] = d2[c];
-          d2[c] = t;
-        }
+        band_step<true, false>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl], nullptr,
+                               hc, tid, q0, dl, (i0 + dl) * pgap, nullptr, pxy, pgap);
+        swap_diagonals(d1, d2);
         ++dl;
       }
-      // The steady steps: no per-cell test.
+      // The steady steps: no border lane, the harvest from lane rb.
       for (; dl < c1; dl += 2) {
-        step<false>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl],
-                    harvest ? harvest + dl : nullptr, hc, tid, q0, dl, 0, pxy, pgap);
-        step<false>(x, y, d2, d1, e1, e2, buf, sh_p1, ysh[dl + 1], topsh[dl + 1],
-                    harvest ? harvest + dl + 1 : nullptr, hc, tid, q0, dl + 1, 0, pxy, pgap);
+        band_step<false, false>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl],
+                                harvest ? harvest + dl : nullptr, hc, tid, q0, -1, 0, nullptr,
+                                pxy, pgap);
+        band_step<false, false>(x, y, d2, d1, e1, e2, buf, sh_p1, ysh[dl + 1], topsh[dl + 1],
+                                harvest ? harvest + dl + 1 : nullptr, hc, tid, q0, -1, 0,
+                                nullptr, pxy, pgap);
       }
       if (dl == c1) {
-        step<false>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl],
-                    harvest ? harvest + dl : nullptr, hc, tid, q0, dl, 0, pxy, pgap);
-#pragma unroll
-        for (int c = 0; c < CELLS; ++c) {
-          const int t = d1[c];
-          d1[c] = d2[c];
-          d2[c] = t;
-        }
+        band_step<false, false>(x, y, d1, d2, e1, e2, buf, sh_p1, ysh[dl], topsh[dl],
+                                harvest ? harvest + dl : nullptr, hc, tid, q0, -1, 0, nullptr,
+                                pxy, pgap);
+        swap_diagonals(d1, d2);
       }
       if (harvest && c1 > rb) st_release(progress + slot, min(n, c1 - rb));
     }

@@ -51,13 +51,12 @@ __device__ __forceinline__ int top_value(const Band& B, int dl) {
   return B.top ? B.top[B.top_base + dl] : dl * B.pgap;
 }
 
-// The state of N consecutive lanes (CELLS in the fills; the walk picks its
-// own count, walk.cu).
+// The state of N consecutive lanes in the walk's recompute (walk.cu picks
+// N); the fills keep theirs in band_step's arrays below.
 template <int N>
 struct LanesN {
   int x[N], yd[N], p1[N], p1s[N], p2s[N];
 };
-using Lanes = LanesN<CELLS>;
 
 // Advance this thread's lanes by one diagonal. ``ny`` is the y code entering
 // lane q0 (from the previous thread, or the feed for thread 0); ``topv`` is
@@ -90,17 +89,99 @@ __device__ __forceinline__ void step_cells(LanesN<N>& L, int q0, int ny, int top
   }
 }
 
-// The state (p1, p1s, p2s) of this thread's lanes below ``lanes``: one
-// snapshot, the three planes of ``lanes`` values each.
-__device__ __forceinline__ void write_snapshot(int* snap, const Lanes& L,
+// The fills' step (band_fill.cu, conveyor_fill.cu). A thread keeps its
+// CELLS lanes on the last two diagonals in two register arrays that trade
+// roles from step to step (no per-cell copy moves the state along), and the
+// previous thread's last lane on those diagonals in e1 (dl - 1) and e2
+// (dl - 2), NEG_FILL for thread 0.
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Picks v[c] for a c known only at run time, without indexing the array
+// (which would move it to local memory).
+__device__ __forceinline__ int pick(const int (&v)[CELLS], int c) {
+  int r = v[0];
+#pragma unroll
+  for (int k = 1; k < CELLS; ++k) r = c == k ? v[k] : r;
+  return r;
+}
+
+// Local diagonal dl of this thread's lanes from a (diagonal dl - 1) and b
+// (dl - 2), written into b; x, y: the lanes' codes, ny the y code entering
+// lane q0. Then, in this order: thread 0's lane 0 takes topv; with kRamp,
+// lane inj_q (the ramp front, or -1) takes inj_v (the left border) and, with
+// kSetX, the x code *inj_x (a lane that changes band); the thread given a
+// ``harvest`` pointer stores its lane hc there. Then the hand-off of the
+// last lane to the next thread through sh_p1: one barrier. The border and
+// harvest are branches of the one thread that holds the lane, not per-cell
+// tests.
+template <bool kRamp, bool kSetX>
+__device__ __forceinline__ void band_step(int (&x)[CELLS], int (&y)[CELLS],
+                                          const int (&a)[CELLS], int (&b)[CELLS], int& e1,
+                                          int& e2, int& buf, int (*sh_p1)[MAX_THREADS],
+                                          int ny, int topv, int* harvest, int hc, int tid,
+                                          int q0, int inj_q, int inj_v, const short* inj_x,
+                                          int pxy, int pgap) {
+#pragma unroll
+  for (int c = CELLS - 1; c > 0; --c) y[c] = y[c - 1];
+  y[0] = ny;
+  // Descending, so b[c - 1] still holds diagonal dl - 2 when lane c reads it.
+#pragma unroll
+  for (int c = CELLS - 1; c >= 0; --c) {
+    const int up = c ? a[c - 1] : e1;
+    const int dg = c ? b[c - 1] : e2;
+    const int t2 = min(up, a[c]) + pgap;
+    b[c] = __viaddmin_s32(dg, x[c] == y[c] ? 0 : pxy, t2);
+  }
+  if (tid == 0) b[0] = topv;
+  if (kRamp && (unsigned)(inj_q - q0) < CELLS) {
+#pragma unroll
+    for (int c = 0; c < CELLS; ++c)
+      if (q0 + c == inj_q) {
+        b[c] = inj_v;
+        if (kSetX) x[c] = *inj_x;
+      }
+  }
+  if (harvest) *harvest = pick(b, hc);
+  buf ^= 1;
+  sh_p1[buf][tid] = b[CELLS - 1];
+  __syncthreads();
+  e2 = e1;
+  e1 = sh_p1[buf][tid ? tid - 1 : 0];
+  if (tid == 0) e1 = NEG_FILL;
+}
+
+// After an odd number of band_step calls the newest diagonal is in d2:
+// swap it back into d1.
+__device__ __forceinline__ void swap_diagonals(int (&d1)[CELLS], int (&d2)[CELLS]) {
+#pragma unroll
+  for (int c = 0; c < CELLS; ++c) {
+    const int t = d1[c];
+    d1[c] = d2[c];
+    d2[c] = t;
+  }
+}
+
+// The state (p1, p1s, p2s) entering the next step, of this thread's lanes
+// below ``lanes``: one snapshot, three planes of ``lanes`` values each.
+__device__ __forceinline__ void write_snapshot(int* snap, const int (&d1)[CELLS],
+                                               const int (&d2)[CELLS], int e1, int e2,
                                                int q0, int lanes) {
 #pragma unroll
   for (int c = 0; c < CELLS; ++c) {
     const int q = q0 + c;
     if (q < lanes) {
-      snap[q] = L.p1[c];
-      snap[lanes + q] = L.p1s[c];
-      snap[2 * lanes + q] = L.p2s[c];
+      snap[q] = d1[c];
+      snap[lanes + q] = c ? d1[c - 1] : e1;
+      snap[2 * lanes + q] = c ? d2[c - 1] : e2;
     }
   }
 }

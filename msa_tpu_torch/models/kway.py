@@ -27,15 +27,21 @@ FILL_MODES = ("auto", "banded", "conveyor")
 def choose_fill_mode(config: TorchConfig) -> str:
     """The fill of the device pairs: ``config.fill_mode`` unless "auto".
 
-    "auto" takes the banded fill, the faster one on an H100 ("NVIDIA H100
-    80GB HBM3, 700.00 W"): big13 end to end, alternating banded, conveyor,
-    conveyor, banded, banded, conveyor in one call of ``chip_smoke.py``,
-    took 0.38-0.46 s banded and 1.73-1.74 s conveyor; the fills alone
-    138.7 ms and 1,585.6 ms (PERF.md). The JAX package's rule (the conveyor
-    from 3 device pairs, msa_tpu/models/kway.py:28-59) fits one TPU
-    TensorCore's lane space, and held on the H100 only while one block
-    carried a pair's bands in order (conveyor 1.73-1.76 s, banded
-    1.82-1.85 s).
+    "auto" takes the banded fill. The fill-mode A/B of ``chip_smoke.py``
+    on an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"; modes alternating,
+    three runs each, one call; PERF.md), with the conveyor redesigned for
+    Hopper (bands chained across resident sweeps, 100 of them):
+    - big13 (78 pairs of up to 14 bands): banded 0.325-0.364 s end to
+      end, conveyor 0.440-0.457 s; the fills alone 139.9 ms and 215.1 ms;
+    - 1,128 pairs of one band each (6,000-7,168 characters): the
+      conveyor's fill is the faster, 61.0-66.6 ms against 67.8-68.0 ms,
+      but end to end banded took 1.37-1.73 s and conveyor 1.31-1.56 s,
+      an overlap that the host decode of 1,128 pairs sets; in an earlier
+      call, with 132 sweeps, banded won all three pairs of runs.
+    The conveyor wins no workload end to end beyond the runs' spread, so
+    no rule that routes by workload is supported. The JAX package's rule
+    (the conveyor from 3 device pairs, msa_tpu/models/kway.py:28-59) fits
+    one TPU TensorCore's lane space.
     """
     if config.fill_mode not in FILL_MODES:
         raise ValueError(f"unknown fill_mode {config.fill_mode!r}; expected one of {FILL_MODES}")

@@ -40,9 +40,11 @@ SIGNATURES = {
     "walk": [P, LL, P, P, I, I, I, I, I, P, P, P, P, P],
     # conveyor_fill(genes, stride, sweeps, bands, events, num_sweeps, rb,
     #               snap_k, ymax, pxy, pgap, c0, c1, score, brow, snaps,
-    #               carry, stream)
-    "conveyor_fill": [P, LL, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P],
+    #               carry, progress, stream)
+    "conveyor_fill": [P, LL, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P],
 }
+# Other C functions of a library: conveyor_fill_resident(rb, snap_k, blocks).
+HELPERS = {"conveyor_fill": {"conveyor_fill_resident": [I, I, ctypes.POINTER(I)]}}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -111,9 +113,10 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(_lib_path(name))
-            fn = getattr(lib, name)
-            fn.argtypes = SIGNATURES[name]
-            fn.restype = ctypes.c_int
+            for fname, argtypes in {name: SIGNATURES[name], **HELPERS.get(name, {})}.items():
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 

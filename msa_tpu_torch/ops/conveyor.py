@@ -1,50 +1,52 @@
-"""Conveyor fill: the bands of many pairs staggered through one sweep.
+"""Conveyor fill: the bands of many pairs staggered through concurrent
+sweeps, each pair's bands chained across sweeps.
 
 Port of ``msa_tpu/ops/conveyor.py``. A sweep is one band-wide lane space
 (rb + 1 lanes, lane q = row i0 + q of the band that owns it) advanced one
-anti-diagonal per global step t. Every band of every pair in the sweep
-enters it at a K-aligned start and rides it with band-local diagonal
-dl = t - start: a new band's ramp front climbs one lane per step just behind
-the previous band's draining cells, so no lane idles through a ramp. Band
-b + 1 of a pair reads band b's bottom row (harvested from lane rb into the
-``brow`` table) as its top row, and one snapshot of the whole lane space
-every K steps serves the traceback of every band resident at that step.
+anti-diagonal per global step t. Every band placed on a sweep enters it at a
+K-aligned start and rides it with band-local diagonal dl = t - start: a new
+band's ramp front climbs one lane per step just behind the previous band's
+draining cells, so no lane idles through a ramp. Band b + 1 of a pair reads
+band b's bottom row (harvested from lane rb into the ``brow`` table) as its
+top row, and one snapshot of the whole lane space every K steps serves the
+traceback of every band resident at that step.
 
 Host planner (copied, the JAX module imports jax at the top): ``BandPlan``,
-``ConveyorPlan``, ``plan_conveyor``, ``plan_workload`` and
-``plan_snapshot_bytes``; the device-memory budget is
-``band_fill.py::device_budget``, which both pipelines share. The stagger
-rules and the score-event deferral are kept verbatim, so for a workload the
-JAX planner accepts, the band starts, brow slots, orientation and
-``pair_ready`` are the JAX ones. Dropped, because only the TPU needs them:
+``ConveyorPlan``, ``plan_conveyor`` and ``plan_workload``; the
+device-memory budget is ``band_fill.py::device_budget``, which both
+pipelines share. The JAX package ran one sweep a TPU core; here the sweeps
+are thread blocks, and ``plan_conveyor`` places bands, not pairs: each
+band goes to the sweep where it can start earliest, behind its producer
+(band b - 1, on any sweep) by the JAX planner's rb + 2K, so a pair's bands
+run side by side on several SMs. With one sweep the band starts, brow
+slots, orientation and ``pair_ready`` are the JAX ones. Dropped, because
+only the TPU needs them:
 
 - the 4-band cap per pair: the Pallas walk's params held 4 bands in cols
   8..15; the port's walk reads a band table of any length, and rb 7168 needs
   up to 14 bands for 100k-character sequences;
 - ``CHUNK_PAD`` and the round-up of ``n_chunks`` to 8, which served Mosaic's
-  compile reuse and its (8, 128) SMEM blocks: here ``n_chunks`` covers the
-  sweep's steps and no more;
+  compile reuse and its (8, 128) SMEM blocks: here a sweep's chunks cover
+  its steps and no more;
 - the lane padding to a (R, 128) tile (v_len): a sweep has rb + 1 lanes;
   ``ymax`` (a brow row's length) is the longest y + 1, and brow has no trash
   row (the kernel harvests only the band that owns lane rb).
 
-Added: ``plan_sweeps`` splits the device pairs over ``conveyors`` concurrent
-sweeps, one thread block each (the JAX package ran one sweep per TPU and an
-LPT split over devices, ``msa_tpu/models/kway.py:220-287``), by LPT on the
-planner's own cost nb * (max(n, rb) + K). With one sweep the plan is JAX's.
-
-Layout of a workload's fill state (``ConveyorState``), all int32, sweep w at
-its offsets in the sweep table:
+Layout of a workload's fill state (``ConveyorState``), all int32:
 
 - ``score[g]``: dp[m][n] of the pair in conveyor slot g;
-- ``brow``: slot s of sweep w, column j at ``brow_off + s * ymax + j``;
-  slot 0 (the analytic row j * pgap) is computed, not stored;
-- ``snaps``: chunk c of sweep w at ``snap_off + c * 3 * (rb + 1)``: the
+- ``brow``: slot s (one a band, global over the sweeps), column j at
+  ``s * ymax + j``; slot 0 (the analytic row j * pgap) is computed, not
+  stored;
+- ``snaps``: chunk c of sweep w at ``snap_off + (c - first) * 3 * (rb +
+  1)``, from the chunk of its first band (``Workload.snap_base``): the
   state (p1, p1s, p2s) after global step c * K, the state a band with
   start <= c * K enters its local step c * K - start + 1 with; the walk
-  reads band segment s at chunk start / K + s;
+  reads band segment s at chunk start / K + s of the band's sweep;
 - ``carry``: (x, yd, p1, p1s, p2s) of each sweep's lanes after the last
-  launch, read by the next (the fill runs in segments).
+  launch, read by the next (the fill runs in segments), and ``progress``,
+  the global steps each sweep has finished, which the kernel's consumers
+  wait on.
 
 ``conveyor_fill`` launches ``csrc/conveyor_fill.cu`` for CUDA tensors and
 runs ``conveyor_fill_ref`` for CPU tensors; any other device raises.
@@ -63,7 +65,6 @@ import numpy as np
 import torch
 
 from msa_tpu_torch.utils.alignment import moves_to_alignment
-from msa_tpu_torch.utils.tasks import PairTask
 from msa_tpu_torch.config import MAX_RB, TorchConfig
 from msa_tpu_torch.ops.band_fill import (
     NEG_FILL,
@@ -74,16 +75,21 @@ from msa_tpu_torch.ops.band_fill import (
     to_card,
 )
 from msa_tpu_torch.ops.walk import make_walk_plan, pair_moves, walk
-from msa_tpu_torch.parallel.schedule import lpt_schedule
 
 # Columns of the sweep, band and event tables (csrc/conveyor_fill.cu keeps
 # the same order).
-S_BAND_LO, S_BAND_HI, S_EV_LO, S_EV_HI, S_CHUNKS, S_SNAP_OFF, S_BROW_OFF = range(7)
+S_BAND_LO, S_BAND_HI, S_EV_LO, S_EV_HI, S_FIRST, S_CHUNKS, S_SNAP_OFF = range(7)
 SCOL = 7
-C_START, C_I0, C_ROWS, C_N, C_XG, C_YG, C_BROW_IN, C_BROW_OUT = range(8)
-CCOL = 8
+C_START, C_I0, C_ROWS, C_N, C_XG, C_YG, C_BROW_IN, C_BROW_OUT, C_PSWEEP, C_PSTART = range(10)
+CCOL = 10
 E_T, E_Q, E_PAIR = range(3)
 ECOL = 3
+# SMs the default sweep count (conveyors = 0) leaves to the walks, so the
+# walk of a segment's finished pairs runs beside the next fill segment
+# rather than after it. On an H100 big13 end to end was faster with 100
+# sweeps than with all 132, though its fill alone was slower
+# (chip_smoke.py's big13_conveyor_sweeps, PERF.md).
+WALK_SMS = 32
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -92,7 +98,7 @@ def _round_up(x: int, mult: int) -> int:
 
 @dataclasses.dataclass
 class BandPlan:
-    pair_slot: int  # pair index within the sweep (conveyor order)
+    pair_slot: int  # pair index in conveyor order
     band: int  # band index within the pair
     i0: int  # first row of the band (band * rb)
     n: int  # y length of the pair
@@ -103,12 +109,13 @@ class BandPlan:
     brow_in: int  # brow slot feeding this band's top (0 = analytic)
     is_last: bool  # last band of its pair (emits the score event)
     q_last: int  # rows in the last band (score lane)
+    sweep: int = 0  # the sweep the band rides
 
 
 @dataclasses.dataclass
 class ConveyorPlan:
-    bands: List[BandPlan]
-    n_chunks: int
+    bands: List[BandPlan]  # in placement order: pair by pair, band by band
+    n_chunks: int  # chunks until the last sweep ends
     rb: int
     snap_k: int
     ymax: int  # brow row length: columns 0 .. longest n
@@ -116,6 +123,9 @@ class ConveyorPlan:
     # Per pair slot: first chunk index at which every snapshot, boundary row
     # and score event the pair's walk reads has been written.
     pair_ready: List[int] = dataclasses.field(default_factory=list)
+    # Per sweep: the chunk of its first band's start, and its end.
+    sweep_first: List[int] = dataclasses.field(default_factory=list)
+    sweep_chunks: List[int] = dataclasses.field(default_factory=list)
 
 
 def check_geometry(rb: int, snap_k: int) -> None:
@@ -127,64 +137,90 @@ def check_geometry(rb: int, snap_k: int) -> None:
 
 def plan_conveyor(
     genes: Sequence[str], pairs: Sequence[Tuple[int, int]], rb: int, snap_k: int,
+    sweeps: int = 1,
 ) -> ConveyorPlan:
-    """K-aligned band schedule of one sweep (deterministic)."""
+    """K-aligned band schedule over ``sweeps`` concurrent sweeps (deterministic).
+
+    Bands are taken in order (pair, band), and each goes to the sweep where
+    it can start earliest (ties: the sweep that idles least before it, then
+    the lowest), under two rules:
+
+    - after the sweep's previous band, >= max(prev_n + K, rb + K) steps:
+      regions stay disjoint (lane q frees at prev dl = q + n, K steps before
+      the ramp front reaches it) and at most one band ramps;
+    - after its producer (band b - 1 of the pair, on any sweep), >= rb + 2K:
+      the bottom row is harvested (rb steps) at least K steps before the
+      successor's top lane reads it.
+
+    A pair's last band is deferred by K until its score event's chunk holds
+    no other event of its sweep (the JAX chunk table's rule). With one sweep
+    the producer is the previous band and the plan is the JAX planner's.
+    Sweeps fill in order, so the sweeps that hold bands are the first ones.
+    """
     K = snap_k
     bands: List[BandPlan] = []
-    prev_n = None  # y length of the previous band in conveyor order
+    free_at = np.zeros(max(1, sweeps), np.int64)  # earliest next start on each sweep
+    last: List[Optional[BandPlan]] = [None] * len(free_at)
+    ev_chunks: List[set] = [set() for _ in free_at]
     slot = 1  # 0 = analytic row
     max_n = 0
-    ev_chunks = set()  # K-chunks already holding a score event
     for pslot, (xi, yi) in enumerate(pairs):
         m, n = len(genes[xi]), len(genes[yi])
         nb = max(1, -(-m // rb))
         q_last = m - (nb - 1) * rb
         max_n = max(max_n, n)
-        pred_row = 0  # analytic for the first band
+        pred: Optional[BandPlan] = None
         for b in range(nb):
-            if bands:
-                # >= prev_n + K: regions stay disjoint (lane q frees at prev
-                # dl = q + n). >= rb + K: at most one band ramping. Same pair:
-                # the predecessor's bottom row is harvested (rb steps) at
-                # least K steps before the successor's top lane reads it.
-                stagger = max(prev_n + K, rb + K)
-                if b > 0:
-                    stagger = max(stagger, rb + 2 * K)
-                start = _round_up(bands[-1].start + stagger, K)
-            else:
-                start = 0
+            cand = np.maximum(free_at, pred.start + rb + 2 * K if pred else 0)
+            # The earliest start; among those, the sweep that idles least
+            # before it (the latest free), then the lowest.
+            ties = np.flatnonzero(cand == cand.min())
+            w = int(ties[np.argmax(free_at[ties])])
+            start = int(cand[w])
             if b == nb - 1:
-                # One score event per chunk (the JAX chunk table's rule, kept
-                # so plans stay identical): defer the last band until the
-                # chunk of its event start + q_last + n is free.
-                while (start + q_last + n) // K in ev_chunks:
-                    start += K
-                ev_chunks.add((start + q_last + n) // K)
+                if (start + q_last + n) // K in ev_chunks[w]:
+                    best = None
+                    for w in np.lexsort((np.arange(len(cand)), -free_at, cand)).tolist():
+                        if best is not None and cand[w] > best[0]:
+                            break
+                        start = int(cand[w])
+                        while (start + q_last + n) // K in ev_chunks[w]:
+                            start += K
+                        best = min(best or (start, -int(free_at[w]), w), (start, -int(free_at[w]), w))
+                    start, w = best[0], best[2]
+                ev_chunks[w].add((start + q_last + n) // K)
+            prev = last[w]
             # The lanes of the previous band must all be done before this
             # band's ramp front reaches them (conveyor_fill.cu relies on it).
-            assert not bands or start - bands[-1].start >= prev_n + K
-            bands.append(BandPlan(
+            assert prev is None or start - prev.start >= prev.n + K
+            bp = BandPlan(
                 pair_slot=pslot, band=b, i0=b * rb, n=n, xi=xi, yi=yi,
-                start=start, brow_out=slot, brow_in=pred_row,
-                is_last=(b == nb - 1), q_last=q_last,
-            ))
-            pred_row = slot
+                start=start, brow_out=slot, brow_in=pred.brow_out if pred else 0,
+                is_last=(b == nb - 1), q_last=q_last, sweep=w,
+            )
+            bands.append(bp)
+            last[w] = pred = bp
+            free_at[w] = start + _round_up(max(n + K, rb + K), K)
             slot += 1
-            prev_n = n
-    last = bands[-1]
-    total = last.start + rb + last.n + 2
-    n_chunks = -(-total // K)
+    used = [bp for bp in last if bp is not None]
+    first = [-1] * len(used)
+    for bp in bands:
+        if first[bp.sweep] < 0:
+            first[bp.sweep] = bp.start // K
+    # A sweep ends when its last band has drained; every earlier band of it
+    # has been harvested by then (its start + n + K <= the next start).
+    chunks = [-(-(bp.start + rb + bp.n + 2) // K) for bp in used]
     pair_ready = [0] * len(pairs)
     for bp in bands:
         # Last chunk the band touches: its highest-dl snapshot, bottom row
         # and score event all land by (start + rb + n) // K; +2 margin, as
         # in the JAX planner.
         pair_ready[bp.pair_slot] = max(
-            pair_ready[bp.pair_slot], min((bp.start + rb + bp.n) // K + 2, n_chunks)
+            pair_ready[bp.pair_slot], min((bp.start + rb + bp.n) // K + 2, chunks[bp.sweep])
         )
     return ConveyorPlan(
-        bands=bands, n_chunks=n_chunks, rb=rb, snap_k=K, ymax=max_n + 1,
-        n_slots=slot, pair_ready=pair_ready,
+        bands=bands, n_chunks=max(chunks), rb=rb, snap_k=K, ymax=max_n + 1,
+        n_slots=slot, pair_ready=pair_ready, sweep_first=first, sweep_chunks=chunks,
     )
 
 
@@ -214,41 +250,41 @@ def _size_order(genes: Sequence[str], pairs: Sequence[Tuple[int, int]]) -> List[
 
 def plan_workload(
     genes: Sequence[str], pairs: Sequence[Tuple[int, int]], rb: int, snap_k: int,
+    sweeps: int = 1,
 ):
-    """One sweep's plan: ``(order, ordered, swapped, plan)``.
+    """The band schedule of a workload: ``(order, ordered, swapped, plan)``.
 
     ``order[r]`` is the caller index of the r-th pair in size-descending
     conveyor order; ``ordered[r]`` its (x gene, y gene) after orientation;
-    ``swapped[r]`` whether it was transposed; ``plan`` the band schedule.
+    ``swapped[r]`` whether it was transposed; ``plan`` the band schedule
+    over ``sweeps`` sweeps.
     """
     order = _size_order(genes, pairs)
     oriented = [_orient(genes, *pairs[idx], rb, snap_k) for idx in order]
     ordered = [(xi, yi) for _, _, xi, yi in oriented]
     swapped = [sw for _, sw, _, _ in oriented]
-    return order, ordered, swapped, plan_conveyor(genes, ordered, rb, snap_k)
-
-
-def plan_snapshot_bytes(plan: ConveyorPlan) -> int:
-    """Device bytes of one sweep's snapshots."""
-    return plan.n_chunks * 3 * (plan.rb + 1) * 4
+    return order, ordered, swapped, plan_conveyor(genes, ordered, rb, snap_k, sweeps)
 
 
 @dataclasses.dataclass
 class Workload:
-    """The plans of all sweeps and the tables the fill kernel reads.
+    """A workload's band schedule and the tables the fill kernel reads.
 
-    Global conveyor slot g (sweep w's local pair p is g = slot0[w] + p) is
-    the caller's pair ``order[g]``, oriented as ``ordered[g]``.
+    Conveyor slot g is the caller's pair ``order[g]``, oriented as
+    ``ordered[g]``. Sweep w's bands are rows ``sweep_table[w, S_BAND_LO]``
+    .. ``S_BAND_HI`` of ``band_table`` (by start), its score events rows
+    ``S_EV_LO`` .. ``S_EV_HI`` of ``event_table`` (by step, at most one a
+    chunk), its snapshot of chunk c at ``snap_off + (c - first) * 3 *
+    (rb + 1)``.
     """
 
     order: List[int]
     ordered: List[Tuple[int, int]]
     swapped: List[int]
-    sweeps: List[ConveyorPlan]
-    slot0: List[int]
+    plan: ConveyorPlan
     sweep_table: np.ndarray  # (W, SCOL) int64
-    band_table: np.ndarray  # (bands, CCOL) int64, each sweep's rows by start
-    event_table: np.ndarray  # (pairs, ECOL) int64, each sweep's rows by step
+    band_table: np.ndarray  # (bands, CCOL) int64
+    event_table: np.ndarray  # (pairs, ECOL) int64
     rb: int
     snap_k: int
     ymax: int
@@ -260,95 +296,78 @@ class Workload:
         return len(self.order)
 
     @property
+    def num_sweeps(self) -> int:
+        return int(self.sweep_table.shape[0])
+
+    @property
     def max_chunks(self) -> int:
-        return max(p.n_chunks for p in self.sweeps)
+        return self.plan.n_chunks
 
     @property
     def snapshot_bytes(self) -> int:
         return 4 * self.snaps_len
 
-    def sweep_of(self, g: int) -> Tuple[int, int]:
-        """(sweep, pair slot within the sweep) of conveyor slot g."""
-        w = int(np.searchsorted(self.slot0, g, side="right")) - 1
-        return w, g - self.slot0[w]
-
     def pair_ready(self, g: int) -> int:
-        w, local = self.sweep_of(g)
-        return self.sweeps[w].pair_ready[local]
+        return self.plan.pair_ready[g]
+
+    def snap_base(self, bp: BandPlan) -> int:
+        """Offset in ``snaps`` of the snapshot taken at band ``bp``'s start."""
+        first, snap_off = self.sweep_table[bp.sweep, [S_FIRST, S_SNAP_OFF]].tolist()
+        return snap_off + (bp.start // self.snap_k - first) * 3 * (self.rb + 1)
 
 
 def plan_sweeps(
     genes: Sequence[str], pairs: Sequence[Tuple[int, int]], rb: int, snap_k: int,
     conveyors: int,
 ) -> Workload:
-    """Split the pairs over ``conveyors`` sweeps (LPT) and plan each."""
+    """Place the pairs' bands on at most ``conveyors`` sweeps; the tables."""
     check_geometry(rb, snap_k)
-    costs = [
-        (PairTask(idx, i, j), _orient(genes, i, j, rb, snap_k)[0])
-        for idx, (i, j) in enumerate(pairs)
-    ]
-    shards = [
-        sorted(t.task_id for t in shard)
-        for shard in lpt_schedule(costs, max(1, min(conveyors, len(pairs))))
-        if shard
-    ]
-    order, ordered, swapped, sweeps, slot0 = [], [], [], [], []
-    for idxs in shards:
-        sub_order, sub_ordered, sub_swapped, plan = plan_workload(
-            genes, [pairs[i] for i in idxs], rb, snap_k
-        )
-        slot0.append(len(order))
-        order += [idxs[r] for r in sub_order]
-        ordered += sub_ordered
-        swapped += sub_swapped
-        sweeps.append(plan)
-
+    order, ordered, swapped, plan = plan_workload(genes, pairs, rb, snap_k, max(1, conveyors))
     lanes = rb + 1
-    ymax = max(p.ymax for p in sweeps)
     sweep_rows, band_rows, event_rows = [], [], []
-    snap_off = brow_off = 0
-    for w, plan in enumerate(sweeps):
+    snap_off = 0
+    producer = {bp.brow_out: bp for bp in plan.bands}
+    by_sweep: List[List[BandPlan]] = [[] for _ in plan.sweep_first]
+    for bp in plan.bands:
+        by_sweep[bp.sweep].append(bp)  # by start
+    for w, (first, chunks) in enumerate(zip(plan.sweep_first, plan.sweep_chunks)):
+        mine = by_sweep[w]
         events = sorted(
-            (bp.start + bp.q_last + bp.n, bp.q_last, slot0[w] + bp.pair_slot)
-            for bp in plan.bands if bp.is_last
+            (bp.start + bp.q_last + bp.n, bp.q_last, bp.pair_slot) for bp in mine if bp.is_last
         )
         sweep_rows.append([
-            len(band_rows), len(band_rows) + len(plan.bands), len(event_rows),
-            len(event_rows) + len(events), plan.n_chunks, snap_off, brow_off,
+            len(band_rows), len(band_rows) + len(mine), len(event_rows),
+            len(event_rows) + len(events), first, chunks, snap_off,
         ])
-        for bp in plan.bands:
+        for bp in mine:
+            pred = producer.get(bp.brow_in)
             band_rows.append([
-                bp.start, bp.i0, min(rb, len(genes[bp.xi]) - bp.i0), bp.n,
-                bp.xi, bp.yi, bp.brow_in, bp.brow_out,
+                bp.start, bp.i0, min(rb, len(genes[bp.xi]) - bp.i0), bp.n, bp.xi, bp.yi,
+                bp.brow_in, bp.brow_out, pred.sweep if pred else -1, pred.start if pred else 0,
             ])
         event_rows += events
-        snap_off += plan.n_chunks * 3 * lanes
-        brow_off += plan.n_slots * ymax
+        snap_off += (chunks - first) * 3 * lanes
     return Workload(
-        order=order, ordered=ordered, swapped=swapped, sweeps=sweeps, slot0=slot0,
+        order=order, ordered=ordered, swapped=swapped, plan=plan,
         sweep_table=np.array(sweep_rows, np.int64).reshape(-1, SCOL),
         band_table=np.array(band_rows, np.int64).reshape(-1, CCOL),
         event_table=np.array(event_rows, np.int64).reshape(-1, ECOL),
-        rb=rb, snap_k=snap_k, ymax=ymax, snaps_len=snap_off, brow_len=brow_off,
+        rb=rb, snap_k=snap_k, ymax=plan.ymax, snaps_len=snap_off,
+        brow_len=plan.n_slots * plan.ymax,
     )
 
 
 def conveyor_walk_plan(wl: Workload, genes: Sequence[str], slots: Sequence[int]):
     """The walk's view of the conveyor's output for conveyor slots ``slots``."""
-    lanes = wl.rb + 1
-    K = wl.snap_k
+    by_pair: List[List[BandPlan]] = [[] for _ in range(wl.num_pairs)]
+    for bp in wl.plan.bands:
+        by_pair[bp.pair_slot].append(bp)
     pairs = []
     for g in slots:
-        w, local = wl.sweep_of(g)
-        snap_off, brow_off = wl.sweep_table[w, [S_SNAP_OFF, S_BROW_OFF]].tolist()
-        bands = [
-            (snap_off + bp.start // K * 3 * lanes,
-             brow_off + bp.brow_in * wl.ymax if bp.brow_in else 0)
-            for bp in wl.sweeps[w].bands if bp.pair_slot == local
-        ]
+        bands = [(wl.snap_base(bp), bp.brow_in * wl.ymax) for bp in by_pair[g]]
         xi, yi = wl.ordered[g]
         pairs.append((len(genes[xi]), len(genes[yi]), xi, yi, wl.swapped[g], bands))
-    return make_walk_plan(pairs, wl.rb, K)
+    return make_walk_plan(pairs, wl.rb, wl.snap_k)
 
 
 @dataclasses.dataclass
@@ -359,6 +378,7 @@ class ConveyorState:
     brow: torch.Tensor  # (brow_len,) int32
     snaps: torch.Tensor  # (snaps_len,) int32
     carry: torch.Tensor  # (W * 5 * (rb + 1),) int32
+    progress: torch.Tensor  # (W,) int32: global steps each sweep has finished
 
 
 def conveyor_state(wl: Workload, device: torch.device) -> ConveyorState:
@@ -367,8 +387,23 @@ def conveyor_state(wl: Workload, device: torch.device) -> ConveyorState:
         score=torch.zeros(wl.num_pairs, **i32),
         brow=torch.zeros(max(wl.brow_len, 1), **i32),
         snaps=torch.zeros(wl.snaps_len, **i32),
-        carry=torch.zeros(len(wl.sweeps) * 5 * (wl.rb + 1), **i32),
+        carry=torch.zeros(wl.num_sweeps * 5 * (wl.rb + 1), **i32),
+        progress=torch.zeros(wl.num_sweeps, **i32),
     )
+
+
+def resident_sweeps(rb: int, snap_k: int, device: torch.device) -> Optional[int]:
+    """Sweeps the fill kernel can hold resident at once on ``device`` (one
+    block each); None on the CPU, where the plain version takes any count."""
+    if device.type != "cuda":
+        return None
+    from msa_tpu_torch.ops import _build
+
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check("conveyor_fill_resident",
+                     _build.load("conveyor_fill").conveyor_fill_resident(rb, snap_k, ctypes.byref(blocks)))
+    return blocks.value
 
 
 def conveyor_fill(
@@ -377,7 +412,8 @@ def conveyor_fill(
 ) -> ConveyorState:
     """Advance every sweep through chunks [c0, c1); updates ``state`` in place.
 
-    Segments must run in order from c0 = 0; on the card through the kernel.
+    Segments must run in order from c0 = 0; on the card through the kernel,
+    which raises when the sweeps do not all fit at once.
     """
     if table.dtype != torch.uint8 or table.dim() != 2:
         raise ValueError("gene table must be a 2-D uint8 tensor")
@@ -389,9 +425,15 @@ def conveyor_fill(
     from msa_tpu_torch.ops import _build
 
     dev = table.device
-    for t in (state.score, state.brow, state.snaps, state.carry):
+    for t in (state.score, state.brow, state.snaps, state.carry, state.progress):
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("conveyor state must be contiguous int32 on the table's device")
+    resident = resident_sweeps(wl.rb, wl.snap_k, dev)
+    if wl.num_sweeps > resident:
+        raise ValueError(
+            f"{wl.num_sweeps} conveyor sweeps do not fit the card at once ({resident} "
+            f"resident blocks at rb {wl.rb}); the sweeps wait on each other, so all must"
+        )
     lib = _build.load("conveyor_fill")
     table = table.contiguous()
     sweeps, bands, events = (
@@ -400,9 +442,10 @@ def conveyor_fill(
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.conveyor_fill(
         table.data_ptr(), table.stride(0), sweeps.data_ptr(), bands.data_ptr(),
-        events.data_ptr(), len(wl.sweeps), wl.rb, wl.snap_k, wl.ymax, pxy, pgap,
+        events.data_ptr(), wl.num_sweeps, wl.rb, wl.snap_k, wl.ymax, pxy, pgap,
         c0, c1, state.score.data_ptr(), state.brow.data_ptr(),
-        state.snaps.data_ptr(), state.carry.data_ptr(), ctypes.c_void_p(stream),
+        state.snaps.data_ptr(), state.carry.data_ptr(), state.progress.data_ptr(),
+        ctypes.c_void_p(stream),
     )
     _build.check("conveyor_fill", err)
     _build.count(conveyor_fill, wl.num_pairs if c0 == 0 else 0)
@@ -413,108 +456,136 @@ conveyor_fill.launches = 0  # kernel launches (plain-version runs not counted)
 conveyor_fill.pairs = 0  # pairs of the workloads those launches began
 
 
+class _RefSweep:
+    """One sweep of ``conveyor_fill_ref``: its lanes, cursors and y stream."""
+
+    def __init__(self, table, wl: Workload, w: int, c0: int, c1: int, state: ConveyorState):
+        b_lo, b_hi, e_lo, e_hi, first, chunks, snap_off = wl.sweep_table[w].tolist()
+        K, lanes = wl.snap_k, wl.rb + 1
+        self.t0, self.t1 = max(c0, first) * K, min(c1, chunks) * K
+        self.first, self.snap_off = first, snap_off
+        self.bands = wl.band_table[b_lo:b_hi].tolist()
+        self.events = wl.event_table[e_lo:e_hi].tolist()
+        self.carry = state.carry[w * 5 * lanes : (w + 1) * 5 * lanes].view(5, lanes)
+        i32 = dict(dtype=torch.int32, device=table.device)
+        self.neg = torch.full((1,), NEG_FILL, **i32)
+        # Lane q at step t holds the y code Y[t - q - 1]: the stream
+        # reversed, rev[T - t + q] with ystream[lanes + g] = Y[g].
+        self.T = chunks * K
+        ystream = torch.full((self.T + lanes,), Y_SENTINEL, **i32)
+        for start, _, _, n, _, yg, *_ in self.bands:
+            ystream[lanes + start : lanes + start + n] = table[yg, :n]
+        self.rev = ystream.flip(0)
+        if self.t0 == first * K:
+            self.xv = torch.full((lanes,), X_SENTINEL, **i32)
+            self.p1 = torch.full((lanes,), NEG_FILL, **i32)
+            self.prev = torch.full((lanes,), NEG_FILL, **i32)
+        else:
+            self.xv, self.p1 = self.carry[0].clone(), self.carry[2].clone()
+            self.prev = torch.cat([self.carry[4][1:], self.neg])
+        self.top = self.bot = -1
+        self.ev = next((e for e, (t, _, _) in enumerate(self.events) if t >= self.t0),
+                       len(self.events))
+
+    def shift(self, v):
+        return torch.cat([self.neg, v[:-1]])
+
+    def step(self, table, wl: Workload, pxy: int, pgap: int, t: int, state: ConveyorState):
+        rb, K, ymax, lanes = wl.rb, wl.snap_k, wl.ymax, wl.rb + 1
+        bands = self.bands
+        while self.top + 1 < len(bands) and bands[self.top + 1][C_START] <= t:
+            self.top += 1
+        while self.bot + 1 < len(bands) and bands[self.bot + 1][C_START] + rb <= t:
+            self.bot += 1
+        start, i0, rows, n, xg, _, brow_in, *_ = bands[self.top]
+        dl = t - start
+        if dl <= rb:  # the ramp: lane dl takes its x code
+            if 1 <= dl <= rows:
+                self.xv[dl : dl + 1] = table[xg, i0 + dl - 1 : i0 + dl]
+            else:
+                self.xv[dl] = X_SENTINEL
+        yd = self.rev[self.T - t : self.T - t + lanes]
+        sub = (self.xv != yd).to(torch.int32) * pxy
+        p1, prev = self.p1, self.prev
+        cur = torch.empty_like(p1)
+        cur[1:] = torch.minimum(prev[:-1] + sub[1:], torch.minimum(p1[1:], p1[:-1]) + pgap)
+        if dl > n:
+            cur[0] = NEG_FILL
+        elif brow_in:  # the producer's row, harvested on whichever sweep
+            row = brow_in * ymax + dl
+            cur[0:1] = state.brow[row : row + 1]
+        else:
+            cur[0] = dl * pgap
+        if dl <= rb:
+            cur[dl] = (i0 + dl) * pgap
+        if self.bot >= 0:
+            b_start, _, _, b_n, _, _, _, brow_out, *_ = bands[self.bot]
+            h = t - b_start - rb
+            if h <= b_n:
+                row = brow_out * ymax + h
+                state.brow[row : row + 1] = cur[rb : rb + 1]
+        if self.ev < len(self.events) and self.events[self.ev][E_T] == t:
+            _, q, g = self.events[self.ev]
+            state.score[g : g + 1] = cur[q : q + 1]
+            self.ev += 1
+        self.prev, self.p1 = p1, cur
+        if t % K == 0:
+            base = self.snap_off + (t // K - self.first) * 3 * lanes
+            state.snaps[base : base + 3 * lanes] = torch.cat(
+                [cur, self.shift(cur), self.shift(p1)])
+
+    def store(self):
+        lanes = self.carry.shape[1]
+        self.carry[0] = self.xv
+        self.carry[1] = self.rev[self.T - self.t1 + 1 : self.T - self.t1 + 1 + lanes]
+        self.carry[2] = self.p1
+        self.carry[3] = self.shift(self.p1)
+        self.carry[4] = self.shift(self.prev)
+
+
 def conveyor_fill_ref(
     table: torch.Tensor, wl: Workload, pxy: int, pgap: int, c0: int, c1: int,
     state: ConveyorState,
 ) -> ConveyorState:
-    """Plain PyTorch fill: one Python step per global step, same outputs.
+    """Plain PyTorch fill: one Python step per sweep and global step, same
+    outputs as the kernel.
 
-    The lanes' y codes are a view of one reversed y stream per sweep (lane q
-    at step t holds the code that entered lane 0 at step t - q), and p1s, p2s
-    are p1 and the previous p1 shifted up one lane.
+    All sweeps advance in global step order, so a band reads its producer's
+    row, harvested on another sweep, when the kernel reads it: after the
+    harvest (the planner's stagger). ``progress`` is the kernel's alone.
     """
-    dev = table.device
-    rb, K, ymax = wl.rb, wl.snap_k, wl.ymax
-    lanes = rb + 1
-    i32 = dict(dtype=torch.int32, device=dev)
-    neg = torch.full((1,), NEG_FILL, **i32)
-
-    def shift(v):
-        return torch.cat([neg, v[:-1]])
-
-    for w, (b_lo, b_hi, e_lo, e_hi, n_chunks, snap_off, brow_off) in enumerate(
-        wl.sweep_table.tolist()
-    ):
-        t0, t1 = c0 * K, min(c1, n_chunks) * K
-        if t0 >= t1:
-            continue
-        bands = wl.band_table[b_lo:b_hi].tolist()
-        events = wl.event_table[e_lo:e_hi].tolist()
-        carry = state.carry[w * 5 * lanes : (w + 1) * 5 * lanes].view(5, lanes)
-        T = n_chunks * K
-        ystream = torch.full((T + lanes,), Y_SENTINEL, **i32)
-        for start, _, _, n, _, yg, _, _ in bands:
-            ystream[lanes + start : lanes + start + n] = table[yg, :n]
-        rev = ystream.flip(0)  # lane q at step t: rev[T - t + q]
-        if t0 == 0:
-            xv = torch.full((lanes,), X_SENTINEL, **i32)
-            p1 = torch.full((lanes,), NEG_FILL, **i32)
-            prev = torch.full((lanes,), NEG_FILL, **i32)
-        else:
-            xv, p1 = carry[0].clone(), carry[2].clone()
-            prev = torch.cat([carry[4][1:], neg])
-        top = bot = -1
-        ev = next((e for e, (t, _, _) in enumerate(events) if t >= t0), len(events))
-        for t in range(t0, t1):
-            while top + 1 < len(bands) and bands[top + 1][C_START] <= t:
-                top += 1
-            while bot + 1 < len(bands) and bands[bot + 1][C_START] + rb <= t:
-                bot += 1
-            start, i0, rows, n, xg, _, brow_in, _ = bands[top]
-            dl = t - start
-            if dl <= rb:  # the ramp: lane dl takes its x code
-                if 1 <= dl <= rows:
-                    xv[dl : dl + 1] = table[xg, i0 + dl - 1 : i0 + dl]
-                else:
-                    xv[dl] = X_SENTINEL
-            yd = rev[T - t : T - t + lanes]
-            sub = (xv != yd).to(torch.int32) * pxy
-            cur = torch.empty(lanes, **i32)
-            cur[1:] = torch.minimum(
-                prev[:-1] + sub[1:], torch.minimum(p1[1:], p1[:-1]) + pgap
-            )
-            if dl > n:
-                cur[0] = NEG_FILL
-            elif brow_in:
-                row = brow_off + brow_in * ymax + dl
-                cur[0:1] = state.brow[row : row + 1]
-            else:
-                cur[0] = dl * pgap
-            if dl <= rb:
-                cur[dl] = (i0 + dl) * pgap
-            if bot >= 0:
-                b_start, _, _, b_n, _, _, _, brow_out = bands[bot]
-                h = t - b_start - rb
-                if h <= b_n:
-                    row = brow_off + brow_out * ymax + h
-                    state.brow[row : row + 1] = cur[rb : rb + 1]
-            if ev < len(events) and events[ev][E_T] == t:
-                _, q, g = events[ev]
-                state.score[g : g + 1] = cur[q : q + 1]
-                ev += 1
-            prev, p1 = p1, cur
-            if t % K == 0:
-                base = snap_off + t // K * 3 * lanes
-                state.snaps[base : base + 3 * lanes] = torch.cat([p1, shift(p1), shift(prev)])
-        carry[0] = xv
-        carry[1] = rev[T - t1 + 1 : T - t1 + 1 + lanes]
-        carry[2] = p1
-        carry[3] = shift(p1)
-        carry[4] = shift(prev)
+    live = [_RefSweep(table, wl, w, c0, c1, state) for w in range(wl.num_sweeps)]
+    live = [sw for sw in live if sw.t0 < sw.t1]
+    if not live:
+        return state
+    for t in range(min(sw.t0 for sw in live), max(sw.t1 for sw in live)):
+        for sw in live:
+            if sw.t0 <= t < sw.t1:
+                sw.step(table, wl, pxy, pgap, t, state)
+    for sw in live:
+        sw.store()
     return state
 
 
-def sweep_count(conveyors: int, num_pairs: int, device: torch.device) -> int:
-    """Concurrent sweeps: ``conveyors``, or min(pairs, SM count) when 0.
+def sweep_count(conveyors: int, resident: Optional[int], free: int = 0) -> int:
+    """Concurrent sweeps of a conveyor workload: ``conveyors``, 0 meaning as
+    many as are resident less ``free`` (blocks left to the walks), never
+    more than ``resident`` (the card's count, ``resident_sweeps``). Without
+    a card (None) there is no cap, and 0 means one sweep."""
+    if resident is None:
+        return max(1, conveyors)
+    return max(1, resident - free) if conveyors <= 0 else min(conveyors, resident)
 
-    On the CPU (plain versions, one sweep after another) 0 means one sweep.
-    """
-    if conveyors <= 0:
-        conveyors = (
-            torch.cuda.get_device_properties(device).multi_processor_count
-            if device.type == "cuda" else 1
-        )
-    return max(1, min(conveyors, num_pairs))
+
+def conveyor_sweeps(config: TorchConfig, device: torch.device) -> int:
+    """``sweep_count`` of ``config`` on ``device``: at 0, the sweeps of
+    ``WALK_SMS`` SMs are left to the walks."""
+    resident = resident_sweeps(config.rb_conveyor, config.snap_k, device)
+    free = 0
+    if resident is not None:
+        per_sm = resident // torch.cuda.get_device_properties(device).multi_processor_count
+        free = WALK_SMS * per_sm
+    return sweep_count(config.conveyors, resident, free)
 
 
 def align_pairs_conveyor(
@@ -542,7 +613,7 @@ def align_pairs_conveyor(
     if not num:
         return []
     rb, K = config.rb_conveyor, config.snap_k
-    wl = plan_sweeps(genes, pairs, rb, K, sweep_count(config.conveyors, num, device))
+    wl = plan_sweeps(genes, pairs, rb, K, conveyor_sweeps(config, device))
 
     budget = device_budget(device, config.hbm_budget)
     if wl.snapshot_bytes > budget:

@@ -27,7 +27,14 @@ import numpy as np
 import torch
 
 from msa_tpu_torch.ops.band_fill import FillState, Plan, plan_pairs
-from msa_tpu_torch.ops.conveyor import ConveyorPlan, ConveyorState
+from msa_tpu_torch.ops.conveyor import (
+    S_CHUNKS,
+    S_FIRST,
+    S_SNAP_OFF,
+    ConveyorPlan,
+    ConveyorState,
+    Workload,
+)
 
 
 def fill_state_from_jax(score, rows, snaps, *, m, n, rb, v_len, snap_k) -> FillState:
@@ -115,44 +122,48 @@ def conveyor_state_from_jax(scores, snaps, brow, *, plan: ConveyorPlan, rb, v_le
         brow=torch.from_numpy(np.ascontiguousarray(rows).reshape(-1)),
         snaps=torch.from_numpy(np.ascontiguousarray(flat).reshape(-1)),
         carry=torch.zeros(5 * lanes, dtype=torch.int32),
+        progress=torch.zeros(1, dtype=torch.int32),
     )
 
 
-def valid_conveyor_cells(plan: ConveyorPlan) -> np.ndarray:
-    """(n_chunks, 3, rb + 1) bool: the snapshot entries that are DP cells.
+def valid_conveyor_cells(wl: Workload) -> np.ndarray:
+    """(snaps_len,) bool: the snapshot entries that are DP cells.
 
-    Chunk c is global step t = c * K. For each band with start <= t, local
-    dl = t - start; plane 0 (p1) at lane q is its cell (q, dl - q), planes 1
-    and 2 (p1s, p2s) the cells (q - 1, dl - q + 1) and (q - 1, dl - q). An
-    entry is valid when the cell lies in the band (row 0 .. its rows) and in
-    the matrix (column 0 .. n). The bands' regions are disjoint (the
-    planner's stagger >= previous n + K), so each entry belongs to at most
-    one band.
+    Chunk c of a sweep is global step t = c * K. For each band of the sweep
+    with start <= t, local dl = t - start; plane 0 (p1) at lane q is its cell
+    (q, dl - q), planes 1 and 2 (p1s, p2s) the cells (q - 1, dl - q + 1) and
+    (q - 1, dl - q). An entry is valid when the cell lies in the band (row
+    0 .. its rows) and in the matrix (column 0 .. n). The bands' regions on
+    a sweep are disjoint (the planner's stagger >= previous n + K), so each
+    entry belongs to at most one band.
     """
-    rb, K = plan.rb, plan.snap_k
-    q = np.arange(rb + 1)[None, :]
-    out = np.zeros((plan.n_chunks, 3, rb + 1), bool)
-    for bp in plan.bands:
+    rb, K = wl.rb, wl.snap_k
+    lanes = rb + 1
+    q = np.arange(lanes)[None, :]
+    out = np.zeros((wl.snaps_len // (3 * lanes), 3, lanes), bool)
+    for bp in wl.plan.bands:
+        first, chunks, snap_off = wl.sweep_table[bp.sweep, [S_FIRST, S_CHUNKS, S_SNAP_OFF]]
         rows = bp.q_last if bp.is_last else rb
         c0 = -(-bp.start // K)
-        c1 = min(plan.n_chunks, (bp.start + rb + bp.n) // K + 1)
+        c1 = min(chunks, (bp.start + rb + bp.n) // K + 1)
         dl = (np.arange(c0, c1) * K - bp.start)[:, None]
+        at = snap_off // (3 * lanes) + np.arange(c0, c1) - first
         for plane, (row, col) in enumerate(
             [(q, dl - q), (q - 1, dl - q + 1), (q - 1, dl - q)]
         ):
-            out[c0:c1, plane] |= (row >= 0) & (row <= rows) & (col >= 0) & (col <= bp.n)
-    return out
+            out[at, plane] |= (row >= 0) & (row <= rows) & (col >= 0) & (col <= bp.n)
+    return out.reshape(-1)
 
 
-def valid_brow_cells(plan: ConveyorPlan) -> np.ndarray:
-    """(n_slots, ymax) bool: brow entries that are DP cells.
+def valid_brow_cells(wl: Workload) -> np.ndarray:
+    """(brow_len,) bool: brow entries that are DP cells.
 
     A band that is not its pair's last has a bottom row dp[i0 + rb][j],
     j = 0 .. n, in its brow_out slot; the other slots and columns carry
     arbitrary values.
     """
-    out = np.zeros((plan.n_slots, plan.ymax), bool)
-    for bp in plan.bands:
+    out = np.zeros((wl.plan.n_slots, wl.ymax), bool)
+    for bp in wl.plan.bands:
         if not bp.is_last:
             out[bp.brow_out, : bp.n + 1] = True
-    return out
+    return out.reshape(-1)

@@ -94,22 +94,57 @@ def jax_skew_fill():
         )
     wl = conv.plan_sweeps(genes, pairs, RB, K, conveyors=1)
     state = conveyor_state_from_jax(
-        scores, snaps, brow, plan=wl.sweeps[0], rb=RB, v_len=plan.v_len
+        scores, snaps, brow, plan=wl.plan, rb=RB, v_len=plan.v_len
     )
     return genes, pairs, wl, state
 
 
 def _same_plan(port, jax_plan):
+    """The port's one-sweep plan is the JAX plan, band for band."""
     assert len(port.bands) == len(jax_plan.bands)
     for a, b in zip(port.bands, jax_plan.bands):
-        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert a.sweep == 0
+        assert {k: v for k, v in dataclasses.asdict(a).items() if k != "sweep"} == dataclasses.asdict(b)
     assert port.n_chunks <= jax_plan.n_chunks
     assert port.pair_ready == [min(r, port.n_chunks) for r in jax_plan.pair_ready]
+
+
+def _check_chained(genes, wl):
+    """The invariants of a plan over several sweeps; whether some pair's
+    bands lie on more than one sweep."""
+    rb, K = wl.rb, wl.snap_k
+    bands = wl.plan.bands
+    by_slot = {bp.brow_out: bp for bp in bands}
+    assert len(by_slot) == len(bands) and 0 not in by_slot  # each slot written once
+    for w in range(wl.num_sweeps):
+        mine = [bp for bp in bands if bp.sweep == w]
+        assert mine and [bp.start for bp in mine] == sorted(bp.start for bp in mine)
+        for prev, bp in zip(mine, mine[1:]):
+            assert bp.start % K == 0
+            assert bp.start - prev.start >= max(prev.n + K, rb + K)
+        chunks = [(bp.start + bp.q_last + bp.n) // K for bp in mine if bp.is_last]
+        assert len(chunks) == len(set(chunks))  # one score event a chunk a sweep
+        lo, hi, elo, ehi = wl.sweep_table[w, [conv.S_BAND_LO, conv.S_BAND_HI, conv.S_EV_LO, conv.S_EV_HI]]
+        assert [r[conv.C_START] for r in wl.band_table[lo:hi]] == [bp.start for bp in mine]
+        assert ehi - elo == len(chunks)
+    spread = False
+    for bp in bands:
+        if bp.brow_in:
+            pred = by_slot[bp.brow_in]
+            assert (pred.pair_slot, pred.band) == (bp.pair_slot, bp.band - 1)
+            # Column j is harvested at pred.start + rb + j and read at
+            # bp.start + j: at least 2K steps later, on any sweep.
+            assert bp.start >= pred.start + rb + 2 * K
+            spread |= pred.sweep != bp.sweep
+        else:
+            assert bp.band == 0
+    return spread
 
 
 def test_planner_matches_jax():
     """The 30 random workloads of test_pallas_kernels.py:257-283."""
     rng = np.random.default_rng(3)
+    spread = 0
     for trial in range(30):
         k = int(rng.integers(2, 9))
         lens = [int(rng.integers(1, 4000)) for _ in range(k)]
@@ -122,29 +157,27 @@ def test_planner_matches_jax():
         want = jconv.plan_workload(genes, pairs, rb=RB)
         assert got[:3] == want[:3], trial
         _same_plan(got[3], want[3])
-        # One sweep is the JAX plan; several split the pairs and keep each
-        # sweep's plan the JAX plan of its own pairs.
+        # One sweep is the JAX plan; several place the bands of the same
+        # pairs, in the same order and slots, under the stagger rules.
         wl = conv.plan_sweeps(genes, pairs, RB, K, conveyors=1)
         assert (wl.order, wl.ordered, wl.swapped) == tuple(want[:3])
         wl = conv.plan_sweeps(genes, pairs, RB, K, conveyors=3)
-        assert sorted(wl.order) == list(range(len(pairs)))
-        for w, plan in enumerate(wl.sweeps):
-            slots = range(wl.slot0[w], wl.slot0[w] + len(plan.pair_ready))
-            sub = sorted(wl.order[g] for g in slots)
-            _same_plan(plan, jconv.plan_workload(genes, [pairs[i] for i in sub], rb=RB)[3])
+        assert (wl.order, wl.ordered, wl.swapped) == tuple(want[:3])
+        assert 1 <= wl.num_sweeps <= 3
+        spread += _check_chained(genes, wl)
+    assert spread  # some pair's bands ride more than one sweep
 
 
 @pytest.mark.parametrize("segments", [1, 4])
 def test_fill_matches_jax(jax_skew_fill, segments):
     genes, pairs, wl, want = jax_skew_fill
-    plan = wl.sweeps[0]
     got = _fill(genes, wl, segments)
     assert sum(wl.swapped) > 0
     assert torch.equal(got.score, want.score)
-    brow_ok = torch.from_numpy(valid_brow_cells(plan).reshape(-1))
+    brow_ok = torch.from_numpy(valid_brow_cells(wl))
     assert brow_ok.any()
     assert torch.equal(got.brow[brow_ok], want.brow[brow_ok])
-    snaps_ok = torch.from_numpy(valid_conveyor_cells(plan).reshape(-1))
+    snaps_ok = torch.from_numpy(valid_conveyor_cells(wl))
     assert snaps_ok.any()
     assert torch.equal(got.snaps[snaps_ok], want.snaps[snaps_ok])
 
@@ -156,12 +189,75 @@ def test_fill_segments_equal_one_run():
     n_seg = -(-wl.max_chunks // 4)
     assert any(
         bp.start // K < c0 <= (bp.start + RB) // K
-        for bp in wl.sweeps[0].bands for c0 in range(n_seg, wl.max_chunks, n_seg)
+        for bp in wl.plan.bands for c0 in range(n_seg, wl.max_chunks, n_seg)
     )
     one, four = _fill(genes, wl, 1), _fill(genes, wl, 4)
     for a, b in zip((one.score, one.brow, one.snaps, one.carry),
                     (four.score, four.brow, four.snaps, four.carry)):
         assert torch.equal(a, b)
+
+
+def _chain_workload():
+    """Pairs of several bands at rb 256 / K 64, both orientations, short and
+    long; their bands chain across sweeps."""
+    rng = np.random.default_rng(19)
+    genes = [_rand_seq(rng, n) for n in (1100, 700, 30, 520, 900)]
+    pairs = [(i, j) for i in range(1, 5) for j in range(i)] + [(0, 1)]
+    return genes, pairs
+
+
+def _walks(genes, pairs, wl, state):
+    wplan = conv.conveyor_walk_plan(wl, genes, range(wl.num_pairs))
+    words, counts = walk_ref(torch.from_numpy(gene_table(genes)), wplan, state.brow, state.snaps, 3, 2)
+    return words, counts, _alignments(genes, pairs, wl, words.numpy(), counts.numpy(),
+                                      state.score.numpy(), wplan)
+
+
+@pytest.fixture(scope="module")
+def one_sweep_chain():
+    genes, pairs = _chain_workload()
+    wl = conv.plan_sweeps(genes, pairs, 256, 64, conveyors=1)
+    state = _fill(genes, wl, 1)
+    return genes, pairs, wl, state, _walks(genes, pairs, wl, state)
+
+
+@pytest.mark.parametrize("sweeps,segments", [(1, 3), (2, 1), (2, 3), (5, 1), (5, 3)])
+def test_chained_sweeps_equal_one_sweep(one_sweep_chain, sweeps, segments):
+    """Bands chained over several sweeps (a producer's row read from another
+    sweep) give the one-sweep scores, brow cells, walks and alignments."""
+    genes, pairs, one, want, (words, counts, aligned) = one_sweep_chain
+    wl = conv.plan_sweeps(genes, pairs, 256, 64, conveyors=sweeps)
+    assert wl.num_sweeps == sweeps
+    assert sweeps == 1 or any(
+        bp.brow_in and wl.plan.bands[bp.brow_in - 1].sweep != bp.sweep for bp in wl.plan.bands)
+    got = _fill(genes, wl, segments)
+    assert torch.equal(got.score, want.score)
+    brow_ok = torch.from_numpy(valid_brow_cells(wl))
+    assert torch.equal(brow_ok, torch.from_numpy(valid_brow_cells(one)))
+    assert torch.equal(got.brow[brow_ok], want.brow[brow_ok])
+    got_words, got_counts, got_aligned = _walks(genes, pairs, wl, got)
+    assert torch.equal(got_words, words) and torch.equal(got_counts, counts)
+    assert got_aligned == aligned
+    for (i, j), res in zip(pairs, got_aligned):
+        assert res == nw_align_numpy(genes[i], genes[j], 3, 2), (i, j)
+
+
+@pytest.mark.parametrize("conveyors,resident,free,want", [
+    (0, 132, 0, 132), (26, 132, 0, 26), (500, 132, 0, 132), (1, 132, 0, 1), (0, None, 0, 1),
+    (5, None, 0, 5), (0, 132, 32, 100), (26, 132, 32, 26), (500, 132, 32, 132),
+    (0, 20, 32, 1), (0, None, 32, 1)])
+def test_sweep_count_caps_at_resident(conveyors, resident, free, want):
+    """0 takes every resident sweep but the ``free`` ones left to the walks;
+    no count passes the card's resident blocks; without a card (plain
+    version) nothing caps and 0 is one."""
+    assert conv.sweep_count(conveyors, resident, free) == want
+
+
+def test_conveyor_sweeps_on_cpu():
+    """Without a card the configured count is taken as it is (0: one sweep)."""
+    cpu = torch.device("cpu")
+    assert conv.conveyor_sweeps(TorchConfig(conveyors=0), cpu) == 1
+    assert conv.conveyor_sweeps(TorchConfig(conveyors=7), cpu) == 7
 
 
 def test_walk_on_jax_fill(jax_skew_fill):
@@ -176,7 +272,7 @@ def test_walk_on_jax_fill(jax_skew_fill):
         assert res == nw_align_numpy(genes[i], genes[j], 3, 2), (i, j)
 
 
-@pytest.mark.parametrize("conveyors", [1, 3])
+@pytest.mark.parametrize("conveyors", [1, 3, 5])
 def test_align_pairs_conveyor(conveyors):
     """The workload of test_pallas_kernels.py:123-147."""
     rng = np.random.default_rng(11)
@@ -244,7 +340,7 @@ def _problem(seed=42):
     return Problem(pxy=3, pgap=2, genes=genes)
 
 
-@pytest.mark.parametrize("conveyors", [1, 0])
+@pytest.mark.parametrize("conveyors", [1, 0, 4])
 def test_kway_conveyor_matches_jax_package(monkeypatch, conveyors):
     seen = []
     real = conv.conveyor_fill

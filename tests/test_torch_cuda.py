@@ -124,7 +124,8 @@ def test_fill_rejects_too_wide_band(card):
         bf.band_fill(table, plan, 3, 2)
 
 
-@pytest.mark.parametrize("rb,snap_k,conveyors,segments", [(1024, 1024, 1, 4), (256, 128, 3, 5)])
+@pytest.mark.parametrize("rb,snap_k,conveyors,segments", [
+    (1024, 1024, 1, 4), (256, 128, 3, 5), (256, 64, 7, 3)])
 def test_conveyor_kernel_equals_plain_version(card, rb, snap_k, conveyors, segments):
     genes = _genes(rb + conveyors, [2600, 16, 2100, 40, 900])
     pairs = [(i, j) for i in range(1, 5) for j in range(i)] + [(1, 0), (0, 1)]
@@ -139,6 +140,8 @@ def test_conveyor_kernel_equals_plain_version(card, rb, snap_k, conveyors, segme
     for a, b in zip((got.score, got.brow, got.snaps, got.carry),
                     (ref.score, ref.brow, ref.snaps, ref.carry)):
         assert torch.equal(a, b)
+    # Every sweep has finished its last chunk.
+    assert got.progress.tolist() == [c * snap_k for c in wl.plan.sweep_chunks]
     wplan = cv.conveyor_walk_plan(wl, genes, range(wl.num_pairs))
     words, counts = wk.walk(table, wplan, got.brow, got.snaps, 3, 2)
     rwords, rcounts = wk.walk_ref(table, wplan, got.brow, got.snaps, 3, 2)
@@ -152,6 +155,30 @@ def test_conveyor_pipeline_on_card_matches_oracle(card):
     got = cv.align_pairs_conveyor(genes, pairs, 3, 2, device=card, config=cfg)
     for (i, j), res in zip(pairs, got):
         assert res == nw_align_numpy(genes[i], genes[j], 3, 2)
+
+
+def test_conveyor_raises_when_sweeps_do_not_fit(card):
+    """More sweeps than the card holds at once would wait on each other
+    forever: the wrapper raises before the launch."""
+    resident = cv.resident_sweeps(256, 64, card)
+    assert resident >= torch.cuda.get_device_properties(card).multi_processor_count
+    genes = _genes(5, [200] * (resident + 2))
+    pairs = [(i, i + 1) for i in range(resident + 1)]
+    wl = cv.plan_sweeps(genes, pairs, 256, 64, resident + 1)
+    assert wl.num_sweeps == resident + 1
+    table = torch.from_numpy(bf.gene_table(genes)).to(card)
+    with pytest.raises(ValueError, match="do not fit"):
+        cv.conveyor_fill(table, wl, 3, 2, 0, wl.max_chunks, cv.conveyor_state(wl, card))
+    assert cv.sweep_count(0, resident) == resident
+
+
+def test_conveyor_default_leaves_sms_to_the_walks(card):
+    cfg = TorchConfig(rb_conveyor=7168, snap_k=1024)
+    resident = cv.resident_sweeps(7168, 1024, card)
+    per_sm = resident // torch.cuda.get_device_properties(card).multi_processor_count
+    assert per_sm >= 1
+    assert cv.conveyor_sweeps(cfg, card) == resident - cv.WALK_SMS * per_sm
+    assert cv.conveyor_sweeps(TorchConfig(conveyors=10_000), card) == resident
 
 
 def test_conveyor_rejects_too_wide_band(card):
