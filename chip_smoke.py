@@ -67,13 +67,45 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    its recorded golden, the trace naming the fill and walk kernels;
 13. ``torch_backend``: ``--backend torch`` (the plain-torch sweep) on the
    card on mseq1;
-14. one JSON line of the kernels' launches (the ``auto`` run's for the
+14. the striped fill of a lone pair (``ops/nw_striped.py``):
+   ``striped_fill_vs_plain`` (right after phase 2's 20-band case) holds the
+   main geometry at rb 1023 striped over [cuda:0] x 2 and x 4 against
+   ``band_fill_ref`` and one ``band_fill`` launch, every entry equal;
+   ``spec_cap`` runs the 100,352 x 100,000 pair of ``scripts/spec_cap.py``
+   (made in-process, ``msa_tpu_torch/goldens/spec_cap.py``) in both
+   orientations through ``align_pairs_batched`` and striped over [cuda:0] x
+   2 and x 4, each gated on the JSON oracle (penalty and ``pair_hash``), with
+   fill, walk and end-to-end ms, peak device memory and share of bound;
+   ``spec_cap_cli`` runs it as a k = 2 input through the CLI (one fill
+   launch, one walk): golden; the conformance sets include ``data/mseq.dat``;
+15. one JSON line of the kernels' launches (the ``auto`` run's for the
    kernels it runs; the conveyor fill's from its own path's run, beside
    ``auto_launches``), errors, times and bounds, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the repository around it and a CUDA device, and exits nonzero
 without either.
+
+    python3 chip_smoke.py --cards
+
+runs only a lone pair's striped fill across distinct cards (two or more;
+on one card a relay is a store into another launch's buffers, here a peer
+store over the cards' link, released and acquired at system scope):
+
+1. setup: every card's name and power limit, peer access between
+   neighbours, the fill and walk kernels built;
+2. ``cards_fill``: the main geometry (20,000 x 17,000) at rb 1023 (20
+   bands) striped over cuda:0 .. D - 1, D = 2 and every card, against one
+   ``band_fill`` launch on cuda:0: score, rows and every snapshot entry
+   equal;
+3. ``cards_spec_cap``: the spec-cap pair in both orientations through one
+   launch on cuda:0 (``align_pairs_batched``), and through
+   ``nw_align_band_striped`` over [cuda:0] x D (one card) and over cuda:0 ..
+   D - 1 (D cards), in turns; each golden against the JSON oracle, with the
+   fill (``striped_fill`` or ``band_fill`` alone) and the whole route timed
+   on the host with every card synchronised (a CUDA event cannot time a
+   span that starts on one card and ends on another), and each card's peak
+   memory.
 """
 
 from __future__ import annotations
@@ -93,6 +125,7 @@ import time
 BIG13_HASH = "c0befee8737ac74a1ece5abae5cca722c2eaf2bf028aaca8f3f6607204b7e68ea0707a881d5512a723439ab67007e5301a9c126272a3ff2ad96923b0dcf27dab"
 BIG13_PENALTIES = [int(v) for v in """31202 48016 25007 56880 53193 37279 52116 30000 32754 48092 60756 61018 60977 48923 33238 66240 50320 59270 40544 49432 35042 78083 68543 50000 49163 48080 20000 44441 86911 70000 67514 57881 40000 46264 26560 27675 95621 87344 76149 60000 62871 53120 38797 41672 27581 104197 94673 80000 75191 65682 56240 51869 42800 40810 29031 112962 100000 90000 83981 74245 64669 54941 45332 35586 33228 33143 120000 110000 102209 92694 80000 75951 60000 57329 40000 38890 30859 15323 """.split()]
 MSEQ1_HASH_PREFIX = "4d676f40ea4c1e6b"
+MSEQ_HASH_PREFIX = "602d0f604e8fb908"  # BASELINE.md, data/mseq.dat
 BIG13_2_HASH_PREFIX = "7af9b197a65577f9"  # BASELINE.md, permuted big13
 
 
@@ -276,6 +309,8 @@ def check_fill(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
     for snaps in (True, False):
         plan = bf.plan_pairs(lengths, pairs, rb, snap_k, snaps=snaps)
         got = bf.band_fill(table, plan, pxy, pgap)
+        if snaps:
+            first = got
         blocks = bf.band_fill.blocks
         ms = cuda_ms(lambda: bf.band_fill(table, plan, pxy, pgap), reps=3)
         outs = [(got.score, ref.score), (got.rows, ref.rows)] + [(got.snaps, ref.snaps)] * snaps
@@ -287,6 +322,141 @@ def check_fill(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
               more_items_than_blocks=plan.num_items > blocks, max_abs_err=err,
               all_entries_equal=True, ms=ms, plain_ms=plain_ms,
               bound_ms=band_fill_bound(genes, pairs, plan)[0])
+    return ref, first
+
+
+def check_striped(name, genes, rb, snap_k, ref, one, smi, pxy=3, pgap=2):
+    """One pair's fill striped over [cuda:0] x 2 and x 4 (``ops/nw_striped.py``:
+    each stripe a launch, its last band relaying into the next launch's
+    buffers) against ``band_fill_ref`` (``ref``) and one ``band_fill`` launch
+    (``one``): score, rows and every snapshot entry equal. Host-timed, like
+    one launch beside it (allocation, launch and the wait for the card)."""
+    import torch
+
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import nw_striped as ns
+
+    plan = bf.plan_pairs([len(g) for g in genes], [(0, 1)], rb, snap_k)
+    table = torch.from_numpy(bf.gene_table(genes)).cuda()
+    one_ms = cuda_ms(lambda: bf.band_fill(table, plan, pxy, pgap), reps=3)
+    one_host_ms = min(host_ms(lambda: bf.band_fill(table, plan, pxy, pgap))[1] for _ in range(3))
+    for count in (2, 4):
+        devices = [torch.device("cuda", 0)] * count
+        launches = ns.striped_fill.launches
+        got = ns.striped_fill([table] * count, plan, devices, pxy, pgap)
+        if ns.striped_fill.launches != launches + count:
+            raise AssertionError(f"{name}: {count} stripes made {ns.striped_fill.launches - launches} launches")
+        err = max((a - b).abs().max().item() for want in (ref, one) for a, b in (
+            (got.score, want.score), (got.rows, want.rows), (got.snaps, want.snaps)))
+        if err != 0:
+            raise AssertionError(f"{name}: {count} stripes differ from one launch or the plain fill by {err}")
+        ms = min(host_ms(lambda: ns.striped_fill([table] * count, plan, devices, pxy, pgap))[1]
+                 for _ in range(3))
+        phase("striped_fill_vs_plain", case=name, stripes=count, rb=rb, snap_k=snap_k,
+              bands=plan.num_items,
+              stripe_bands=[[s.lo, s.hi] for s in bf.plan_stripes(plan, count)],
+              max_abs_err=err, equal_to="band_fill_ref and one band_fill launch, every entry",
+              striped_host_ms=ms, one_launch_host_ms=one_host_ms, one_launch_ms=one_ms, card=smi)
+
+
+def spec_cap(cfg, smi):
+    """The spec-cap pair (100,352 x 100,000, ``scripts/spec_cap.py``'s seed)
+    in both orientations under three routes: the default banded pipeline,
+    and striped over [cuda:0] x 2 and x 4; each gated on the JSON oracle.
+    Returns the stripe launches of the striped runs."""
+    import torch
+
+    from msa_tpu_torch.goldens import spec_cap as sc
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import batch
+    from msa_tpu_torch.ops import nw_striped as ns
+    from msa_tpu_torch.ops import walk as wk
+    from msa_tpu_torch.utils.hashing import pair_hash
+
+    gold = sc.load()
+    x, y = sc.make_pair()
+    card = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    kernels = {"band_fill": bf.band_fill, "walk": wk.walk, "striped_fill": ns.striped_fill}
+    striped_launches = 0
+
+    for key, (a, b) in (("xy", (x, y)), ("yx", (y, x))):
+        want = gold[key]
+        plan = bf.plan_pairs([len(a), len(b)], [(0, 1)], cfg.rb, cfg.snap_k)
+        bound_ms, bound_by = band_fill_bound([a, b], [(0, 1)], plan)
+        for route in ("default", "striped_2", "striped_4", "default", "striped_2", "striped_4"):
+            for fn in kernels.values():
+                fn.launches = fn.pairs = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if route == "default":
+                with launch_events(batch, ["band_fill", "walk"]) as spans:
+                    got = batch.align_pairs_batched([a, b], [(0, 1)], 3, 2, device=card, rb=cfg.rb,
+                                                    snap_k=cfg.snap_k, config=cfg)[0]
+                torch.cuda.synchronize()
+                fill = spans["band_fill"][0][0].elapsed_time(spans["band_fill"][0][1])
+                route_fill = fill
+            else:
+                # Events around each stripe's launch, on its thread's stream:
+                # the fill is the span from the first stripe's start to the
+                # last one's end; the route's fill adds the buffers, the
+                # checks and the gather (events around striped_fill, which
+                # waits for its stripes).
+                count = int(route.split("_")[1])
+                with launch_events(ns, ["launch", "striped_fill", "walk"]) as spans:
+                    got = ns.nw_align_band_striped(a, b, 3, 2, [card] * count, rb=cfg.rb,
+                                                   snap_k=cfg.snap_k)
+                torch.cuda.synchronize()
+                first = spans["launch"][0][0]
+                fill = max(first.elapsed_time(end) for _, end in spans["launch"])
+                route_fill = spans["striped_fill"][0][0].elapsed_time(spans["striped_fill"][0][1])
+            e2e = (time.perf_counter() - t0) * 1e3
+            walk_ms = spans["walk"][0][0].elapsed_time(spans["walk"][0][1])
+            launches = {name: fn.launches for name, fn in kernels.items()}
+            if (got[0], pair_hash(got[1], got[2]), len(got[1])) != (
+                    want["penalty"], want["pair_hash"], want["align_len"]):
+                raise AssertionError(f"spec cap {key} {route}: not the oracle's alignment")
+            stripes = 1 if route == "default" else count
+            if launches["band_fill"] != stripes or launches["walk"] != 1 or \
+                    launches["striped_fill"] != (0 if route == "default" else stripes):
+                raise AssertionError(f"spec cap {key} {route}: launches {launches}")
+            phase("spec_cap", orientation=key, m=len(a), n=len(b), route=route,
+                  penalty=got[0], pair_hash=want["pair_hash"][:16], golden=True,
+                  fill_ms=fill, route_fill_ms=route_fill, walk_ms=walk_ms, e2e_ms=e2e,
+                  peak_device_bytes=torch.cuda.max_memory_allocated(),
+                  items=plan.num_items, sms=sms, bound_ms=bound_ms, bound_by=bound_by,
+                  share_of_bound=bound_ms / fill, launches=launches, card=smi)
+            striped_launches += launches["striped_fill"]
+    return striped_launches
+
+
+def spec_cap_cli(smi):
+    """The spec-cap pair as a k = 2 input through the CLI, ``--backend cuda``:
+    the pair on the device through one fill and one walk, the output golden."""
+    from msa_tpu_torch.goldens import spec_cap as sc
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import walk as wk
+    from msa_tpu_torch.utils.hashing import chain_hashes
+
+    x, y = sc.make_pair()
+    gold = sc.load()["yx"]  # task 0 aligns gene 1 (y) against gene 0 (x)
+    kernels = {"band_fill": bf.band_fill, "walk": wk.walk}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spec_cap.txt")
+        with open(path, "w") as f:
+            f.write(f"3\n2\n2\n{x}\n{y}\n")
+        for fn in kernels.values():
+            fn.launches = fn.pairs = 0
+        with port_env(fill_mode="banded"):
+            lines, seconds = run_cli(["--backend", "cuda", "--input", path])
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    if lines[1] != chain_hashes([gold["pair_hash"]]) or lines[2].split() != [str(gold["penalty"])]:
+        raise AssertionError(f"spec cap through the CLI is not golden: {lines[:3]}")
+    if launches != {"band_fill": 1, "walk": 1}:
+        raise AssertionError(f"spec cap through the CLI: launches {launches}")
+    phase("spec_cap_cli", hash_prefix=lines[1][:16], penalties=lines[2].split(), golden=True,
+          launches=launches, seconds=seconds, card=smi)
 
 
 def check_conveyor_case(name, genes, pairs, rb, snap_k, segments, conveyors=1,
@@ -431,6 +601,8 @@ def conformance(mode, counted):
         goldens = [json.loads(line) for line in f]
     goldens.append({"dataset": "data/mseq-big13-example2.txt",
                     "chain_hash": BIG13_2_HASH_PREFIX, "penalties": None})
+    goldens.append({"dataset": "data/mseq.dat", "chain_hash": MSEQ_HASH_PREFIX,
+                    "penalties": [5, 4, 9]})
     for gold in goldens:
         counted.pairs = 0
         with port_env(fill_mode=mode):
@@ -953,6 +1125,111 @@ def host_stages(smi):
           card=smi)
 
 
+def sync_all():
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def wall_ms(fn):
+    """(fn(), milliseconds on the host clock, every card synchronised)."""
+    sync_all()
+    t0 = time.perf_counter()
+    out = fn()
+    sync_all()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def cards_main() -> int:
+    """``--cards``: a lone pair's striped fill across distinct cards (see the
+    module docstring)."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs two CUDA devices or more", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from msa_tpu_torch.config import TorchConfig
+    from msa_tpu_torch.goldens import spec_cap as sc
+    from msa_tpu_torch.ops import _build, batch
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import nw_striped as ns
+    from msa_tpu_torch.utils.hashing import pair_hash
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    count = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(count)]
+    widths = sorted({2, count})
+    peers = {f"{a}->{a + 1}": torch.cuda.can_device_access_peer(a, a + 1) for a in range(count - 1)}
+    for name in ("band_fill", "walk"):
+        _build.load(name)
+    phase("setup", cards=smi, count=count, peer_access=peers)
+
+    # 2. the 20-band pair across cards against one launch
+    cfg = TorchConfig()
+    rng = np.random.default_rng(2024)
+    random_genes(rng, [2600, 3400, 4100])
+    main_geom = random_genes(rng, [20000, 17000])  # main()'s main geometry, same seed
+    plan = bf.plan_pairs([20000, 17000], [(0, 1)], 1023, cfg.snap_k)
+    codes = torch.from_numpy(bf.gene_table(main_geom))
+    tables = [codes.to(d) for d in cards]
+    one, one_ms = wall_ms(lambda: bf.band_fill(tables[0], plan, 3, 2))
+    for d in widths:
+        got, ms = wall_ms(lambda: ns.striped_fill(tables[:d], plan, cards[:d], 3, 2))
+        err = max((a - b).abs().max().item() for a, b in (
+            (got.score, one.score), (got.rows, one.rows), (got.snaps, one.snaps)))
+        if err != 0 or got.snaps.device != cards[0]:
+            raise AssertionError(f"20 bands over {d} cards differ from one launch by {err}")
+        phase("cards_fill", case="twenty_bands", cards=d, max_abs_err=err,
+              stripe_bands=[[s.lo, s.hi] for s in bf.plan_stripes(plan, d)],
+              striped_host_ms=ms, one_launch_host_ms=one_ms, card=smi[0])
+    del one, got
+
+    # 3. the spec-cap pair: one launch, stripes on one card, stripes on D cards
+    gold = sc.load()
+    x, y = sc.make_pair()
+    routes = ["one_launch"] + [f"{where}_{d}" for d in widths for where in ("one_card", "cards")]
+    for key, (a, b) in (("xy", (x, y)), ("yx", (y, x))):
+        want = gold[key]
+        plan = bf.plan_pairs([len(a), len(b)], [(0, 1)], cfg.rb, cfg.snap_k)
+        bound_ms, bound_by = band_fill_bound([a, b], [(0, 1)], plan)
+        pair_tables = {d: torch.from_numpy(bf.gene_table([a, b])).to(d) for d in cards}
+        for route in routes + routes[::-1]:
+            if route == "one_launch":
+                devices = [cards[0]]
+            else:
+                where, d = route.rsplit("_", 1)
+                devices = [cards[0]] * int(d) if where == "one_card" else cards[: int(d)]
+            for dev in cards:
+                torch.cuda.reset_peak_memory_stats(dev)
+            if route == "one_launch":
+                # [1]: the fill's output is freed before the route runs.
+                fill_ms = wall_ms(lambda: bf.band_fill(pair_tables[cards[0]], plan, 3, 2))[1]
+                got, e2e = wall_ms(lambda: batch.align_pairs_batched(
+                    [a, b], [(0, 1)], 3, 2, device=cards[0], rb=cfg.rb, snap_k=cfg.snap_k,
+                    config=cfg)[0])
+            else:
+                fill_ms = wall_ms(lambda: ns.striped_fill(
+                    [pair_tables[d] for d in devices], plan, devices, 3, 2))[1]
+                got, e2e = wall_ms(lambda: ns.nw_align_band_striped(
+                    a, b, 3, 2, devices, rb=cfg.rb, snap_k=cfg.snap_k))
+            if (got[0], pair_hash(got[1], got[2]), len(got[1])) != (
+                    want["penalty"], want["pair_hash"], want["align_len"]):
+                raise AssertionError(f"spec cap {key} {route}: not the oracle's alignment")
+            phase("cards_spec_cap", orientation=key, route=route, devices=[str(d) for d in devices],
+                  penalty=got[0], pair_hash=want["pair_hash"][:16], golden=True,
+                  fill_host_ms=fill_ms, e2e_host_ms=e2e, bound_ms=bound_ms, bound_by=bound_by,
+                  peak_device_bytes=[torch.cuda.max_memory_allocated(d) for d in cards],
+                  card=smi[0])
+    print(json.dumps({"ok": True, "cards": count, "card": smi[0]}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -996,7 +1273,10 @@ def main() -> int:
     timed = check_case("main_geometry", main_geom, [(0, 1)], rb=cfg.rb, snap_k=cfg.snap_k)
     # The pipelined fill: 20 bands a pair; more items than resident blocks;
     # skewed pairs (one band of 70,000 steps; nine bands of 6 columns).
-    check_fill("twenty_bands", main_geom, [(0, 1)], rb=1023, snap_k=cfg.snap_k)
+    ref20, one20 = check_fill("twenty_bands", main_geom, [(0, 1)], rb=1023, snap_k=cfg.snap_k)
+    # The same pair in stripes over one card, against both.
+    check_striped("twenty_bands", main_geom, 1023, cfg.snap_k, ref20, one20, smi)
+    del ref20, one20
     many = random_genes(rng, [int(v) for v in rng.integers(600, 3001, 25)])
     check_fill("many_items", many, [(i, j) for i in range(1, 25) for j in range(i)],
                rb=255, snap_k=cfg.snap_k)
@@ -1190,7 +1470,11 @@ def main() -> int:
     batched_profile(all_kernels, smi)
     torch_backend(smi)
 
-    # 14. summary
+    # 14. the lone giant pair: the default route and the striped fill
+    striped_launches = spec_cap(cfg, smi)
+    spec_cap_cli(smi)
+
+    # 15. summary
     sources = {
         "band_fill": ("msa_tpu_torch/csrc/band_fill.cu", "msa_tpu/ops/pallas_nw.py:79"),
         "walk": ("msa_tpu_torch/csrc/walk.cu", "msa_tpu/ops/pallas_walk.py:80"),
@@ -1199,7 +1483,9 @@ def main() -> int:
     # Launches of the main path (fill_mode=auto) for the kernels it runs;
     # the conveyor fill, off that path, from the run of its own path
     # (fill_mode=conveyor), with the main path's 0 beside it.
-    measured = {"band_fill": (timed["fill"], auto_launches["band_fill"], {}),
+    measured = {"band_fill": (timed["fill"], auto_launches["band_fill"],
+                              {"striped_launches": striped_launches,
+                               "striped_launches_from": "spec_cap"}),
                 "walk": (timed["walk"], auto_launches["walk"],
                          {"conveyor_launches": conv_launches["walk"]}),
                 "conveyor_fill": (conveyor_timed, conv_launches["conveyor_fill"],
@@ -1222,4 +1508,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--cards"]:
+        raise SystemExit(cards_main())
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: {sys.argv[0]} [--cards]")
     raise SystemExit(main())

@@ -16,7 +16,14 @@ base):
   DPX ``__viaddmin_s32``;
 - ``chunk_256``: the base binary with 256-step chunks (waits, staging and
   snapshots' boundaries four times as often; a band trails its producer by
-  rb + 256 steps, not rb + 1024).
+  rb + 256 steps, not rb + 1024);
+- ``relay_always``: the main path through the instance with the relay of a
+  striped lone pair (``ops/nw_striped.py``; its two tests, once an item and
+  once a chunk, never true there); the difference to ``base`` is what
+  making the relay a template flag saves.
+
+Each variant also fills the main geometry's pair (20,000 x 17,000, the
+seed of ``chip_smoke.py``) at rb 1023, 20 bands, against the base's output.
 
 Every variant's scores must equal the golden penalties. Prints the card's
 name and power limit, ptxas's registers and spills and SASS counts for each
@@ -34,11 +41,13 @@ import sys
 
 BASE_NEED = "const int need = min(n, c1);"
 BASE_CELL = "b[c] = __viaddmin_s32(dg, x[c] == y[c] ? 0 : pxy, t2);"
+BASE_RELAY_ON = "const bool relay_on = relay_out >= 0 || relay_in >= 0;"
 # (file in csrc/, anchor, replacement) of each variant.
 PATCHES = {
     "base": [],
     "no_pipelining": [("band_fill.cu", BASE_NEED, "const int need = n;")],
     "no_dpx": [("common.cuh", BASE_CELL, "b[c] = min(dg + (x[c] == y[c] ? 0 : pxy), t2);")],
+    "relay_always": [("band_fill.cu", BASE_RELAY_ON, "const bool relay_on = true;")],
 }
 
 
@@ -82,7 +91,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fill_ablation: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import BIG13_PENALTIES, cuda_ms
+    import numpy as np
+
+    from chip_smoke import BIG13_PENALTIES, cuda_ms, random_genes
     from msa_tpu_torch.config import TorchConfig
     from msa_tpu_torch.ops import _build
     from msa_tpu_torch.ops import band_fill as bf
@@ -103,11 +114,17 @@ def main() -> int:
     pairs = [(i, j) for i in range(1, len(genes)) for j in range(i)]
     cfg = TorchConfig()
     plan = bf.plan_pairs([len(g) for g in genes], pairs, cfg.rb, cfg.snap_k)
-    runs = {"base": plan, "no_pipelining": plan, "no_dpx": plan,
+    runs = {"base": plan, "no_pipelining": plan, "no_dpx": plan, "relay_always": plan,
             "chunk_256": bf.Plan(plan.params, plan.rb, plan.snap_k, plan.rows_len,
                                  plan.snaps_len, plan.items, 256)}
     table = torch.from_numpy(bf.gene_table(genes)).cuda()
-    order = ["base", "no_pipelining", "no_dpx", "chunk_256"]
+    rng = np.random.default_rng(2024)
+    random_genes(rng, [2600, 3400, 4100])
+    main_geom = random_genes(rng, [20000, 17000])  # chip_smoke.py's main geometry
+    plan20 = bf.plan_pairs([20000, 17000], [(0, 1)], 1023, cfg.snap_k)
+    table20 = torch.from_numpy(bf.gene_table(main_geom)).cuda()
+    want20 = None
+    order = ["base", "no_pipelining", "no_dpx", "chunk_256", "relay_always"]
     times = {name: [] for name in order}
     for name in order + order[::-1]:
         # The wrapper launches whatever library is loaded under its name.
@@ -120,10 +137,20 @@ def main() -> int:
         ms = cuda_ms(fill, reps=2)
         if holder["out"].score.tolist() != BIG13_PENALTIES:
             raise AssertionError(f"{name}: big13 scores differ from the golden penalties")
-        times[name].append(ms)
-        print(json.dumps({"variant": name, "big13_fill_ms": ms, "blocks": bf.band_fill.blocks,
-                          "card": smi}), flush=True)
         del holder["out"]
+        times[name].append(ms)
+
+        def fill20():
+            holder["out"] = bf.band_fill(table20, plan20, problem.pxy, problem.pgap)
+
+        ms20 = cuda_ms(fill20, reps=3)
+        got20 = holder.pop("out")
+        want20 = got20 if want20 is None else want20
+        if not all(torch.equal(a, b) for a, b in zip(
+                (got20.score, got20.rows, got20.snaps), (want20.score, want20.rows, want20.snaps))):
+            raise AssertionError(f"{name}: the 20-band fill differs from the base's")
+        print(json.dumps({"variant": name, "big13_fill_ms": ms, "blocks": bf.band_fill.blocks,
+                          "twenty_bands_fill_ms": ms20, "card": smi}), flush=True)
     print(json.dumps({"big13_fill_ms": times, "card": smi}), flush=True)
     return 0
 

@@ -36,6 +36,22 @@
 //   outside the step loop; the block then reads them (through L2, __ldcg).
 //   A band trails its producer by about rb + one chunk of steps, so a pair's
 //   bands run side by side on several SMs.
+// - The relay (ops/nw_striped.py). A lone pair striped over several cards
+//   is one launch a stripe, each over the pair's full buffer layout: band
+//   ``relay.out``, the stripe's last, harvests its bottom row into the next
+//   stripe's ``rows`` and publishes its count into that stripe's
+//   ``progress`` (a peer card's memory through UVA, or another launch's on
+//   this card), with a release at system scope: .gpu scope does not order
+//   the stores for a reader on another card. Band ``relay.in``, the next
+//   stripe's first, waits on its own ``progress`` with an acquire at system
+//   scope. The relay is a template flag, as the snapshot mode is: the main
+//   path's launches run the instance without it, whose instructions are the
+//   kernel's before the relay (fill_ablation.py's relay_always runs the
+//   relay instance on the main path: its two tests, once an item and once a
+//   chunk, cost big13's fill 1.6 % on an H100).
+// - Stripes that share a card spin on each other's counts, so they must all
+//   be resident at once: ops/nw_striped.py checks their grids against
+//   band_fill_resident before it launches any.
 // - Deadlock freedom, whatever the grid: a block claims a ticket only while
 //   it is running and works on it until done, and an item's producer has a
 //   smaller ticket, so it was claimed before, by a block that is running or
@@ -67,13 +83,21 @@
 // Longest chunk of steps (ops/band_fill.py keeps the same value).
 #define CHUNK_MAX 1024
 
-template <bool kSnaps>
+// A stripe launch's links to its neighbours; -1 and null on the main path.
+struct Relay {
+  int out;        // band whose bottom row and count go to the next stripe
+  int in;         // band whose top row the previous stripe's launch writes
+  int* rows;      // the next stripe's rows (full pair layout)
+  int* progress;  // the next stripe's progress (slots over the whole pair)
+};
+
+template <bool kSnaps, bool kRelay>
 __global__ void __launch_bounds__(MAX_THREADS)
 band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
                  const long long* __restrict__ params, const int* __restrict__ items,
                  int num_items, int rb, int snap_k, int chunk, int pxy, int pgap,
                  int* __restrict__ score, int* rows, int* __restrict__ snaps,
-                 int* progress, int* tickets) {
+                 int* progress, int* tickets, Relay relay) {
   extern __shared__ int smem[];
   __shared__ int sh_p1[2][MAX_THREADS];
   __shared__ int sh_item;
@@ -103,9 +127,11 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
     const int nrows = min(rb, m - i0);
     const int nsteps = nrows + n;
     const int* top = b ? rows_p + (long long)(b - 1) * n : nullptr;
+    const bool relayed_out = kRelay && b == relay.out, relayed_in = kRelay && b == relay.in;
     // The thread that holds lane rb writes the bottom row (column j at j - 1).
-    int* harvest = (b < nb - 1 && tid == rb / CELLS) ? rows_p + (long long)b * n - rb - 1
-                                                     : nullptr;
+    int* harvest = (b < nb - 1 && tid == rb / CELLS)
+                       ? (relayed_out ? relay.rows + pp[P_ROWS_OFF] : rows_p) + (long long)b * n - rb - 1
+                       : nullptr;
     int* snap_b = kSnaps ? snaps + pp[P_SNAP_OFF] + (long long)b * pp[P_S] * 3 * lanes
                          : nullptr;
 
@@ -126,7 +152,8 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
       if (top && tid == 0) {
         const int need = min(n, c1);
         unsigned ns = 32;
-        while (ld_acquire(progress + slot - 1) < need) {
+        while ((relayed_in ? ld_acquire_sys(progress + slot - 1)
+                           : ld_acquire(progress + slot - 1)) < need) {
           __nanosleep(ns);
           ns = min(2 * ns, 1024u);
         }
@@ -180,36 +207,84 @@ band_fill_kernel(const unsigned char* __restrict__ genes, long long stride,
                                 pxy, pgap);
         swap_diagonals(d1, d2);
       }
-      if (harvest && c1 > rb) st_release(progress + slot, min(n, c1 - rb));
+      if (harvest && c1 > rb) {
+        if (relayed_out)
+          st_release_sys(relay.progress + slot, min(n, c1 - rb));
+        else
+          st_release(progress + slot, min(n, c1 - rb));
+      }
     }
     if (b == nb - 1 && nrows >= q0 && nrows < q0 + CELLS) score[p] = pick(d1, nrows - q0);
   }
 }
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue when
-// rb + 1 lanes do not fit one block or the chunk does not divide snap_k).
-// snaps may be null: no snapshots. progress (one int per band of the
-// workload) and tickets (one int) must be zero. *blocks receives the grid.
-extern "C" int band_fill(const void* genes, long long stride, const void* params,
-                         const void* items, int num_items, int rb, int snap_k, int chunk,
-                         int pxy, int pgap, void* score, void* rows, void* snaps,
-                         void* progress, void* tickets, int* blocks, void* stream) {
+static size_t smem_bytes(int chunk, int threads) {
+  return chunk * sizeof(int) + (chunk + (threads - 1) * CELLS) * sizeof(short);
+}
+
+// The kernel's instance for a snapshot mode and relay.
+static auto instance(bool snaps, bool relay) {
+  return snaps ? (relay ? band_fill_kernel<true, true> : band_fill_kernel<true, false>)
+               : (relay ? band_fill_kernel<false, true> : band_fill_kernel<false, false>);
+}
+
+// Blocks of the fill one card holds at once (SMs x resident blocks per SM),
+// snapshots on or off, relay or not, at this band height and chunk, into
+// *blocks. Querying an instance also loads it.
+extern "C" int band_fill_resident(int rb, int chunk, int snaps, int relay, int* blocks) {
   const int threads = threads_for(rb + 1);
-  if (threads == 0 || num_items <= 0 || chunk <= 0 || chunk > CHUNK_MAX ||
-      (snaps && (snap_k <= 0 || snap_k % chunk != 0)))
-    return cudaErrorInvalidValue;
-  auto kernel = snaps ? band_fill_kernel<true> : band_fill_kernel<false>;
-  const size_t smem = chunk * sizeof(int) + (chunk + (threads - 1) * CELLS) * sizeof(short);
+  if (threads == 0 || chunk <= 0 || chunk > CHUNK_MAX) return cudaErrorInvalidValue;
   int dev, sms, per_sm;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, instance(snaps, relay), threads, smem_bytes(chunk, threads));
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = min(num_items, sms * per_sm);
-  kernel<<<*blocks, threads, smem, (cudaStream_t)stream>>>(
+  *blocks = sms * per_sm;
+  return cudaSuccess;
+}
+
+// Lets card ``dev`` store into card ``peer``'s memory (the relay across
+// cards); 0 when it already could. The calling thread's card is kept.
+extern "C" int band_fill_peer(int dev, int peer) {
+  int cur;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) err = cudaSuccess;
+  cudaGetLastError();  // leave no error behind for the next launch's check
+  cudaSetDevice(cur);
+  return (int)err;
+}
+
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue when
+// rb + 1 lanes do not fit one block or the chunk does not divide snap_k).
+// snaps may be null: no snapshots. progress (one int per band of the
+// workload) and tickets (one int) must be zero. relay_out / relay_in: the
+// bands of the relay (-1: none), relay_rows / relay_progress the next
+// stripe's buffers. *blocks receives the grid.
+extern "C" int band_fill(const void* genes, long long stride, const void* params,
+                         const void* items, int num_items, int rb, int snap_k, int chunk,
+                         int pxy, int pgap, void* score, void* rows, void* snaps,
+                         void* progress, void* tickets, int relay_out, int relay_in,
+                         void* relay_rows, void* relay_progress, int* blocks, void* stream) {
+  const int threads = threads_for(rb + 1);
+  if (threads == 0 || num_items <= 0 || chunk <= 0 || chunk > CHUNK_MAX ||
+      (snaps && (snap_k <= 0 || snap_k % chunk != 0)) ||
+      (relay_out >= 0 && (!relay_rows || !relay_progress)))
+    return cudaErrorInvalidValue;
+  const bool relay_on = relay_out >= 0 || relay_in >= 0;
+  int resident;
+  int err = band_fill_resident(rb, chunk, snaps != nullptr, relay_on, &resident);
+  if (err != cudaSuccess) return err;
+  *blocks = min(num_items, resident);
+  const Relay relay{relay_out, relay_in, (int*)relay_rows, (int*)relay_progress};
+  const auto kernel = instance(snaps != nullptr, relay_on);
+  kernel<<<*blocks, threads, smem_bytes(chunk, threads), (cudaStream_t)stream>>>(
       (const unsigned char*)genes, stride, (const long long*)params, (const int*)items,
       num_items, rb, snap_k, chunk, pxy, pgap, (int*)score, (int*)rows, (int*)snaps,
-      (int*)progress, (int*)tickets);
+      (int*)progress, (int*)tickets, relay);
   return (int)cudaGetLastError();
 }

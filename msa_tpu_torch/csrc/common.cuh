@@ -105,6 +105,20 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// The same at system scope, for a count that crosses cards (band_fill.cu's
+// relay): .gpu scope orders a thread's stores only for observers on its own
+// card, so a producer writing into a peer card's memory releases, and its
+// consumer acquires, at .sys.
+__device__ __forceinline__ int ld_acquire_sys(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(int* p, int v) {
+  asm volatile("st.release.sys.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
 // Picks v[c] for a c known only at run time, without indexing the array
 // (which would move it to local memory).
 __device__ __forceinline__ int pick(const int (&v)[CELLS], int c) {

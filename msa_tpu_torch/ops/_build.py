@@ -33,8 +33,9 @@ NVCC_FLAGS = [
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # band_fill(genes, stride, params, items, num_items, rb, snap_k, chunk,
-    #           pxy, pgap, score, rows, snaps, progress, tickets, blocks, stream)
-    "band_fill": [P, LL, P, P, I, I, I, I, I, I, P, P, P, P, P, ctypes.POINTER(I), P],
+    #           pxy, pgap, score, rows, snaps, progress, tickets, relay_out,
+    #           relay_in, relay_rows, relay_progress, blocks, stream)
+    "band_fill": [P, LL, P, P, I, I, I, I, I, I, P, P, P, P, P, I, I, P, P, ctypes.POINTER(I), P],
     # walk(genes, stride, params, bands, num_pairs, rb, snap_k, pxy, pgap,
     #      rows, snaps, moves, counts, stream)
     "walk": [P, LL, P, P, I, I, I, I, I, P, P, P, P, P],
@@ -43,8 +44,12 @@ SIGNATURES = {
     #               carry, progress, stream)
     "conveyor_fill": [P, LL, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P],
 }
-# Other C functions of a library: conveyor_fill_resident(rb, snap_k, blocks).
-HELPERS = {"conveyor_fill": {"conveyor_fill_resident": [I, I, ctypes.POINTER(I)]}}
+# Other C functions of a library: conveyor_fill_resident(rb, snap_k, blocks);
+# band_fill_resident(rb, chunk, snaps, relay, blocks); band_fill_peer(dev, peer).
+HELPERS = {
+    "conveyor_fill": {"conveyor_fill_resident": [I, I, ctypes.POINTER(I)]},
+    "band_fill": {"band_fill_resident": [I, I, I, I, ctypes.POINTER(I)], "band_fill_peer": [I, I]},
+}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

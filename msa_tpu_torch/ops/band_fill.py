@@ -31,13 +31,19 @@ lag behind the band, plus the last band's rows + n steps.
 
 ``band_fill`` launches ``csrc/band_fill.cu`` for CUDA tensors and runs
 ``band_fill_ref`` for CPU tensors; any other device raises.
+
+A lone pair can be cut into stripes of whole bands (``plan_stripes``), one
+launch each, band ``lo`` of a stripe reading the bottom row that the
+previous stripe's last band relays into its buffers (``ops/nw_striped.py``).
+Stripe 0 holds the pair's whole layout; every other stripe holds only the
+window of rows and snapshots that its bands touch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -132,6 +138,60 @@ def plan_pairs(
     return Plan(params, rb, snap_k, rows_off, snap_off, table, chunk)
 
 
+@dataclasses.dataclass
+class Stripe:
+    """Bands ``lo`` .. ``hi`` - 1 of a lone pair, filled by one launch, and
+    the window of the pair's layout that the stripe's buffers hold: entries
+    ``rows_base`` .. + ``rows_len`` of the rows, ``snaps_base`` .. +
+    ``snaps_len`` of the snapshots."""
+
+    lo: int
+    hi: int
+    items: np.ndarray  # (hi - lo, 3) int32 rows of the plan's items, in ticket order
+    relay: int  # the band whose bottom row goes to the next stripe (hi - 1), or -1
+    rows_base: int
+    rows_len: int
+    snaps_base: int
+    snaps_len: int
+
+    @property
+    def num_items(self) -> int:
+        return self.hi - self.lo
+
+
+def plan_stripes(plan: Plan, stripes: int) -> List[Stripe]:
+    """Cut a one-pair plan's nb bands into ``stripes`` contiguous runs.
+
+    The first nb % stripes runs take one band more than the others; where
+    stripes > nb the last ones are empty. Each run but the last non-empty
+    one relays its last band's bottom row to the next run.
+
+    Stripe 0's window is the whole pair (the gathered state is written into
+    it). Stripe c > 0 holds its bands' snapshots and the bottom rows of bands
+    lo - 1 (relayed in) to hi - 1; the last of those, its own relay band's,
+    is where the plain version stages the row it relays, while the kernel
+    stores it straight into the next stripe's window.
+    """
+    if plan.num_pairs != 1:
+        raise ValueError(f"stripes cut one pair, not {plan.num_pairs}")
+    if stripes < 1:
+        raise ValueError(f"stripes must be positive, got {stripes}")
+    _, n, _, _, nb, S, snap_off, rows_off = (int(v) for v in plan.params[0])
+    per_band = S * 3 * (plan.rb + 1)
+    out, lo = [], 0
+    for c in range(stripes):
+        hi = lo + nb // stripes + (c < nb % stripes)
+        items = plan.items[(plan.items[:, 1] >= lo) & (plan.items[:, 1] < hi)]
+        if c == 0:
+            window = (0, plan.rows_len, 0, plan.snaps_len)
+        else:
+            window = (rows_off + (lo - 1) * n, (min(hi, nb - 1) - lo + 1) * n,
+                      snap_off + lo * per_band, (hi - lo) * per_band)
+        out.append(Stripe(lo, hi, items, hi - 1 if lo < hi < nb else -1, *window))
+        lo = hi
+    return out
+
+
 def gene_table(genes: Sequence[str]) -> np.ndarray:
     """(k, max length) uint8 codes, one row per sequence, zero padded."""
     width = max(1, max(len(g) for g in genes))
@@ -165,46 +225,119 @@ def device_budget(device: torch.device, hbm_budget: int = 0) -> int:
     return 12 << 30
 
 
+def empty_state(plan: Plan, device: torch.device, stripe: Optional[Stripe] = None) -> FillState:
+    """Zeroed outputs of a fill laid out by ``plan``, or of ``stripe``'s
+    window of that layout."""
+    rows_len, snaps_len = (plan.rows_len, plan.snaps_len) if stripe is None else (
+        stripe.rows_len, stripe.snaps_len)
+    i32 = dict(dtype=torch.int32, device=device)
+    return FillState(
+        score=torch.zeros(plan.num_pairs, **i32),
+        rows=torch.zeros(max(rows_len, 1), **i32),
+        snaps=torch.zeros(snaps_len, **i32),
+    )
+
+
+@dataclasses.dataclass
+class Launch:
+    """The device buffers of one fill launch, all allocated before it runs:
+    the tables, the outputs (entry i of the plan's rows at ``out.rows[i -
+    rows_base]``, likewise the snapshots), the bands' published column counts
+    (one slot a band of the plan) and the ticket counter (both zero)."""
+
+    params: torch.Tensor
+    items: torch.Tensor
+    out: FillState
+    progress: torch.Tensor
+    tickets: torch.Tensor
+    rows_base: int = 0
+    snaps_base: int = 0
+
+
+def launch_buffers(plan: Plan, device: torch.device, stripe: Optional[Stripe] = None) -> Launch:
+    """Buffers of a launch over every item of the plan, or over ``stripe``'s
+    items with outputs for its window only."""
+    items = plan.items if stripe is None else stripe.items
+    i32 = dict(dtype=torch.int32, device=device)
+    return Launch(
+        params=to_card(plan.params, device), items=to_card(items, device),
+        out=empty_state(plan, device, stripe),
+        progress=torch.zeros(plan.num_items, **i32), tickets=torch.zeros(1, **i32),
+        rows_base=stripe.rows_base if stripe else 0, snaps_base=stripe.snaps_base if stripe else 0,
+    )
+
+
+def _origin(tensor: torch.Tensor, base: int) -> int:
+    """The address that entry 0 of the plan's layout would have, for a
+    tensor that holds its entries from ``base`` on: the kernel indexes the
+    whole layout and touches only the tensor's window of it."""
+    return tensor.data_ptr() - tensor.element_size() * base
+
+
 def band_fill(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillState:
     """Fill every pair of ``plan``; on the card through the CUDA kernel."""
     if table.dtype != torch.uint8 or table.dim() != 2:
         raise ValueError("gene table must be a 2-D uint8 tensor")
     if table.device.type == "cpu":
         return band_fill_ref(table, plan, pxy, pgap)
+    check_card(table, plan)
+    buffers = launch_buffers(plan, table.device)
+    launch(table, plan, pxy, pgap, buffers)
+    return buffers.out
+
+
+def check_card(table: torch.Tensor, plan: Plan) -> None:
+    """Raise unless the kernel takes this table and plan."""
     if table.device.type != "cuda":
         raise ValueError(f"band_fill runs on cuda or cpu, not {table.device}")
     if plan.rb > MAX_RB:
         raise ValueError(f"the fill kernel takes rb <= {MAX_RB}, got {plan.rb}")
+
+
+def launch(table: torch.Tensor, plan: Plan, pxy: int, pgap: int, buffers: Launch,
+           relay_out: int = -1, relay_in: int = -1, relay_to: Optional[Launch] = None,
+           pairs: Optional[int] = None) -> None:
+    """Launch the fill kernel over ``buffers.items`` on the current stream.
+
+    It allocates nothing. The relay (``ops/nw_striped.py``): band
+    ``relay_out`` writes its bottom row and count into ``relay_to``'s rows
+    window and progress (another card's, or another launch's on this card); band
+    ``relay_in`` waits for its top row at system scope. ``pairs``: the pairs
+    the launch finishes (default: the plan's), for the counters.
+    """
     from msa_tpu_torch.ops import _build
 
     lib = _build.load("band_fill")
     table = table.contiguous()
-    dev = table.device
-    params = to_card(plan.params, dev)
-    items = to_card(plan.items, dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = FillState(
-        score=torch.zeros(plan.num_pairs, **i32),
-        rows=torch.zeros(max(plan.rows_len, 1), **i32),
-        snaps=torch.zeros(plan.snaps_len, **i32),
-    )
-    # Zeroed for every launch: the bands' published column counts and the
-    # ticket counter.
-    progress = torch.zeros(plan.num_items, **i32)
-    tickets = torch.zeros(1, **i32)
+    out = buffers.out
     blocks = ctypes.c_int(0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.band_fill(
-        table.data_ptr(), table.stride(0), params.data_ptr(), items.data_ptr(),
-        plan.num_items, plan.rb, plan.snap_k, plan.chunk, pxy, pgap,
-        out.score.data_ptr(), out.rows.data_ptr(),
-        out.snaps.data_ptr() if plan.snaps_len else None, progress.data_ptr(),
-        tickets.data_ptr(), ctypes.byref(blocks), ctypes.c_void_p(stream),
+        table.data_ptr(), table.stride(0), buffers.params.data_ptr(), buffers.items.data_ptr(),
+        int(buffers.items.shape[0]), plan.rb, plan.snap_k, plan.chunk, pxy, pgap,
+        out.score.data_ptr(), _origin(out.rows, buffers.rows_base),
+        _origin(out.snaps, buffers.snaps_base) if plan.snaps_len else None,
+        buffers.progress.data_ptr(), buffers.tickets.data_ptr(), relay_out, relay_in,
+        _origin(relay_to.out.rows, relay_to.rows_base) if relay_to else None,
+        relay_to.progress.data_ptr() if relay_to else None,
+        ctypes.byref(blocks), ctypes.c_void_p(stream),
     )
     _build.check("band_fill", err)
-    _build.count(band_fill, plan.num_pairs)
+    _build.count(band_fill, plan.num_pairs if pairs is None else pairs)
     band_fill.blocks = blocks.value
-    return out
+
+
+def resident_blocks(plan: Plan, device: torch.device) -> int:
+    """Blocks of the relay's instance of the fill kernel that one card holds
+    at once at ``plan``'s band height, chunk and snapshot mode (the
+    occupancy API; the query also loads the instance on the card)."""
+    from msa_tpu_torch.ops import _build
+
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check("band_fill_resident", _build.load("band_fill").band_fill_resident(
+            plan.rb, plan.chunk, int(plan.snaps_len > 0), 1, ctypes.byref(blocks)))
+    return blocks.value
 
 
 band_fill.launches = 0  # kernel launches (plain-version runs not counted)
@@ -212,29 +345,38 @@ band_fill.pairs = 0  # pairs those launches filled
 band_fill.blocks = 0  # the last launch's persistent grid
 
 
-def band_fill_ref(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillState:
+def band_fill_ref(table: torch.Tensor, plan: Plan, pxy: int, pgap: int,
+                  stripe: Optional[Stripe] = None,
+                  out: Optional[FillState] = None) -> FillState:
     """Plain PyTorch fill: one Python step per diagonal, same outputs.
 
     Band b of every pair that has one runs in one batch, a row per pair, and
     the bands run in order: band b + 1 reads band b's bottom rows. Steps past
-    a pair's own end change none of its outputs.
+    a pair's own end change none of its outputs. ``stripe``: only its bands,
+    band lo reading its top row from ``out``'s rows, and ``out`` laid out as
+    the stripe's window (``ops/nw_striped.py``); ``out``: the outputs to
+    write into.
     """
     dev = table.device
     rb, K = plan.rb, plan.snap_k
     lanes = rb + 1
     i32 = dict(dtype=torch.int32, device=dev)
-    score = torch.zeros(plan.num_pairs, **i32)
-    rows = torch.zeros(max(plan.rows_len, 1), **i32)
-    snaps = torch.zeros(plan.snaps_len, **i32)
+    out = empty_state(plan, dev, stripe) if out is None else out
+    score, rows, snaps = out.score, out.rows, out.snaps
     lane = torch.arange(lanes, **i32)
     width = table.shape[1]
 
     def on(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    for b in range(int(plan.params[:, P_NB].max(initial=0))):
+    if stripe is None:
+        lo, hi, rows_base, snaps_base = 0, int(plan.params[:, P_NB].max(initial=0)), 0, 0
+    else:
+        lo, hi, rows_base, snaps_base = stripe.lo, stripe.hi, stripe.rows_base, stripe.snaps_base
+    for b in range(lo, hi):
         act = np.flatnonzero(plan.params[:, P_NB] > b)
         m, n, xg, yg, nb, S, snap_off, rows_off = plan.params[act].T
+        snap_off, rows_off = snap_off - snaps_base, rows_off - rows_base
         i0 = b * rb
         nrows = np.minimum(rb, m - i0)
         steps = nrows + n
@@ -286,7 +428,7 @@ def band_fill_ref(table: torch.Tensor, plan: Plan, pxy: int, pgap: int) -> FillS
         for a in np.flatnonzero(nb - 1 > b):
             off = int(rows_off[a] + b * n[a])
             rows[off : off + int(n[a])] = bottom[a, : int(n[a])]
-    return FillState(score, rows, snaps)
+    return out
 
 
 def nw_score(

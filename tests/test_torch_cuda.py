@@ -215,3 +215,58 @@ def test_two_shards_on_one_card_match_oracle(card, monkeypatch):
         got = align_kway(problem, config=cfg)
         want = align_kway(problem, backend="numpy")
         assert (got.chain_hash, got.penalties) == (want.chain_hash, want.penalties)
+
+
+@pytest.mark.parametrize("stripes", [2, 3, 5])
+def test_striped_fill_equals_one_launch(card, stripes):
+    """Stripes of one pair on one card, each band's relay into the next
+    launch's buffers: the gathered state equals one launch and the plain
+    version entry for entry, and the alignment the oracle's."""
+    from msa_tpu_torch.ops import nw_striped as ns
+
+    x, y = _genes(stripes, [2100, 1700])
+    plan = bf.plan_pairs([2100, 1700], [(0, 1)], 127, 128)
+    table = torch.from_numpy(bf.gene_table([x, y])).to(card)
+    launches = ns.striped_fill.launches
+    got = ns.striped_fill([table] * stripes, plan, [card] * stripes, 3, 2)
+    assert ns.striped_fill.launches == launches + stripes
+    for want in (bf.band_fill(table, plan, 3, 2), bf.band_fill_ref(table, plan, 3, 2)):
+        for a, b in ((got.score, want.score), (got.rows, want.rows), (got.snaps, want.snaps)):
+            assert torch.equal(a, b)
+    assert ns.nw_align_band_striped(x, y, 3, 2, [card] * stripes, rb=127, snap_k=128) == \
+        nw_align_numpy(x, y, 3, 2)
+
+
+@pytest.mark.parametrize("cards", [2, 4])
+def test_striped_fill_across_cards(card, cards):
+    """Stripes on distinct cards, each relay a peer store into the next card:
+    the gathered state on card 0 equals one launch entry for entry, and the
+    alignment the oracle's."""
+    from msa_tpu_torch.ops import nw_striped as ns
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    x, y = _genes(cards, [2900, 2300])
+    plan = bf.plan_pairs([2900, 2300], [(0, 1)], 127, 128)
+    codes = torch.from_numpy(bf.gene_table([x, y]))
+    got = ns.striped_fill([codes.to(d) for d in devices], plan, devices, 3, 2)
+    want = bf.band_fill(codes.to(devices[0]), plan, 3, 2)
+    for a, b in ((got.score, want.score), (got.rows, want.rows), (got.snaps, want.snaps)):
+        assert a.device == devices[0] and torch.equal(a, b)
+    assert ns.nw_align_band_striped(x, y, 3, 2, devices, rb=127, snap_k=128) == \
+        nw_align_numpy(x, y, 3, 2)
+
+
+def test_striped_fill_raises_when_stripes_do_not_fit(card):
+    from msa_tpu_torch.ops import nw_striped as ns
+
+    stripes = 4
+    resident = bf.resident_blocks(bf.plan_pairs([31, 100], [(0, 1)], 31, 32), card)
+    m = 31 * (resident + stripes)  # more bands than the card holds blocks of
+    plan = bf.plan_pairs([m, 100], [(0, 1)], 31, 32)
+    table = torch.zeros((2, m), dtype=torch.uint8, device=card)
+    launches = bf.band_fill.launches
+    with pytest.raises(RuntimeError, match="resident"):
+        ns.striped_fill([table] * stripes, plan, [card] * stripes, 3, 2)
+    assert bf.band_fill.launches == launches
