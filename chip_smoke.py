@@ -77,8 +77,21 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    2 and x 4, each gated on the JSON oracle (penalty and ``pair_hash``), with
    fill, walk and end-to-end ms, peak device memory and share of bound;
    ``spec_cap_cli`` runs it as a k = 2 input through the CLI (one fill
-   launch, one walk): golden; the conformance sets include ``data/mseq.dat``;
-15. one JSON line of the kernels' launches (the ``auto`` run's for the
+   launch, one walk): golden; the conformance sets are the six datasets of
+   ``scripts/conformance.py::golden_table``;
+15. the pod-scale workloads of ``gen_workload`` against their goldens
+   (``msa_tpu_torch/goldens/pod64.json``, ``pod256.json``: chain hash and
+   every penalty, and some pairs' strings against ``nw_align_native``):
+   ``pod64`` (2,016 pairs) under ``auto``, ``banded`` in four waves or
+   more, ``conveyor``, and ``conveyor`` split in halves twice over, then
+   the fill-mode A/B through ``scripts/ab_compare.py``; ``pod256`` (32,640
+   pairs, over the card's memory) through the CLI in a fresh process, then
+   in-process under ``auto`` (waves that ``device_budget`` gives, three or
+   more) and ``conveyor``; each run's waves or halves, fill and walk
+   launches, device span, idle share, peak memory and host stages; then
+   ``conformance_first_call``: ``scripts/conformance.py``, each dataset in
+   a fresh process, the first call apart from three warm runs;
+16. one JSON line of the kernels' launches (the ``auto`` run's for the
    kernels it runs; the conveyor fill's from its own path's run, beside
    ``auto_launches``), errors, times and bounds, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -120,17 +133,18 @@ import sys
 import tempfile
 import time
 
-# Golden output of the reference for data/mseq-big13-example.txt
-# (the same values gate bench.py).
-BIG13_HASH = "c0befee8737ac74a1ece5abae5cca722c2eaf2bf028aaca8f3f6607204b7e68ea0707a881d5512a723439ab67007e5301a9c126272a3ff2ad96923b0dcf27dab"
-BIG13_PENALTIES = [int(v) for v in """31202 48016 25007 56880 53193 37279 52116 30000 32754 48092 60756 61018 60977 48923 33238 66240 50320 59270 40544 49432 35042 78083 68543 50000 49163 48080 20000 44441 86911 70000 67514 57881 40000 46264 26560 27675 95621 87344 76149 60000 62871 53120 38797 41672 27581 104197 94673 80000 75191 65682 56240 51869 42800 40810 29031 112962 100000 90000 83981 74245 64669 54941 45332 35586 33228 33143 120000 110000 102209 92694 80000 75951 60000 57329 40000 38890 30859 15323 """.split()]
-MSEQ1_HASH_PREFIX = "4d676f40ea4c1e6b"
-MSEQ_HASH_PREFIX = "602d0f604e8fb908"  # BASELINE.md, data/mseq.dat
-BIG13_2_HASH_PREFIX = "7af9b197a65577f9"  # BASELINE.md, permuted big13
+# Golden outputs of the reference (BASELINE.md; the same values gate bench.py).
+from msa_tpu_torch.scripts.conformance import BIG13_HASH, BIG13_PENALTIES, PUBLISHED
+
+MSEQ1_HASH_PREFIX = PUBLISHED["data/mseq1.dat"]["chain_hash"]
+
+
+T0 = time.perf_counter()
 
 
 def phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase's line; ``t``: seconds since the script started."""
+    print(json.dumps({"phase": name, "t": round(time.perf_counter() - T0, 1), **fields}), flush=True)
 
 
 def cuda_ms(fn, reps):
@@ -384,6 +398,13 @@ def spec_cap(cfg, smi):
         want = gold[key]
         plan = bf.plan_pairs([len(a), len(b)], [(0, 1)], cfg.rb, cfg.snap_k)
         bound_ms, bound_by = band_fill_bound([a, b], [(0, 1)], plan)
+        # The walk's bound, from its own output on this pair (uncounted launches).
+        table = torch.from_numpy(bf.gene_table([a, b])).cuda()
+        fill = bf.band_fill(table, plan, 3, 2)
+        wplan = wk.banded_walk_plan(plan)
+        walk_bound_ms, walk_bound_by = walk_bound(walk_work(
+            *wk.walk(table, wplan, fill.rows, fill.snaps, 3, 2), wplan))
+        del table, fill
         for route in ("default", "striped_2", "striped_4", "default", "striped_2", "striped_4"):
             for fn in kernels.values():
                 fn.launches = fn.pairs = 0
@@ -426,7 +447,9 @@ def spec_cap(cfg, smi):
                   fill_ms=fill, route_fill_ms=route_fill, walk_ms=walk_ms, e2e_ms=e2e,
                   peak_device_bytes=torch.cuda.max_memory_allocated(),
                   items=plan.num_items, sms=sms, bound_ms=bound_ms, bound_by=bound_by,
-                  share_of_bound=bound_ms / fill, launches=launches, card=smi)
+                  share_of_bound=bound_ms / fill, walk_bound_ms=walk_bound_ms,
+                  walk_bound_by=walk_bound_by, walk_share_of_bound=walk_bound_ms / walk_ms,
+                  launches=launches, card=smi)
             striped_launches += launches["striped_fill"]
     return striped_launches
 
@@ -597,22 +620,36 @@ def run_big13(counted):
 
 
 def conformance(mode, counted):
-    with open("data/host_goldens.jsonl") as f:
-        goldens = [json.loads(line) for line in f]
-    goldens.append({"dataset": "data/mseq-big13-example2.txt",
-                    "chain_hash": BIG13_2_HASH_PREFIX, "penalties": None})
-    goldens.append({"dataset": "data/mseq.dat", "chain_hash": MSEQ_HASH_PREFIX,
-                    "penalties": [5, 4, 9]})
-    for gold in goldens:
+    """The six bundled datasets through the CLI under one fill mode, each
+    against its golden (``scripts/conformance.py::golden_table``)."""
+    from msa_tpu_torch.scripts.conformance import golden_table, matches
+
+    for dataset, gold in golden_table().items():
         counted.pairs = 0
         with port_env(fill_mode=mode):
-            lines, seconds = run_cli(["--backend", "cuda", "--input", gold["dataset"]])
-        if not lines[1].startswith(gold["chain_hash"]):
-            raise AssertionError(f"{gold['dataset']}: hash {lines[1]} is not the golden hash")
-        if gold["penalties"] is not None and lines[2].split() != [str(p) for p in gold["penalties"]]:
-            raise AssertionError(f"{gold['dataset']}: penalties differ from the golden")
-        phase("conformance", fill_mode=mode, dataset=gold["dataset"], hash_prefix=lines[1][:16],
+            lines, seconds = run_cli(["--backend", "cuda", "--input", dataset])
+        if not matches(gold, lines[1], [int(v) for v in lines[2].split()]):
+            raise AssertionError(f"{dataset}: hash {lines[1]} or penalties are not the golden's")
+        phase("conformance", fill_mode=mode, dataset=dataset, hash_prefix=lines[1][:16],
               device_pairs=counted.pairs, seconds=seconds)
+
+
+def conformance_first_call(smi):
+    """``scripts/conformance.py`` on the card: each bundled dataset in a fresh
+    process, its first call (CUDA context, kernel load, first run) and three
+    warm runs recorded apart, every run gated on the golden."""
+    from msa_tpu_torch.scripts import conformance as cf
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "conformance.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cf.main(["--platform", "cuda", "--out", out])
+        with open(out) as f:
+            records = json.load(f)
+    for rec in records:
+        phase("conformance_first_call", **rec, card=smi)
+    if rc != 0 or len(records) != 6:
+        raise AssertionError(f"scripts/conformance.py: rc {rc}, {len(records)} datasets")
 
 
 def check_score_only(name, genes, pairs, rb, snap_k, pxy=3, pgap=2):
@@ -897,18 +934,12 @@ def conveyor_sweep_choice(genes, pairs, conveyor, resident, default, smi, convey
 
 
 def one_band_problem():
-    """The workload of ``scripts/gen_workload.py --k 48 --min-len 6000
-    --max-len 7168 --dist uniform --seed 0``, made the same way in-process:
-    48 sequences, so 1,128 pairs of one band each at either band height."""
-    import numpy as np
+    """The workload of ``gen_workload --k 48 --min-len 6000 --max-len 7168
+    --dist uniform --seed 0``, made in-process: 48 sequences, so 1,128 pairs
+    of one band each at either band height."""
+    from msa_tpu_torch.scripts.gen_workload import make_problem
 
-    from msa_tpu_torch.utils.msaio import Problem
-
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(6000, 7168 + 1, size=48)
-    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
-    genes = tuple(alpha[rng.integers(0, 4, size=int(n))].tobytes().decode("ascii") for n in lengths)
-    return Problem(pxy=3, pgap=2, genes=genes)
+    return make_problem(k=48, min_len=6000, max_len=7168, dist="uniform", seed=0)
 
 
 def one_band_ab(banded, conveyor, smi):
@@ -1061,12 +1092,46 @@ def big13_waves(genes, pairs, banded, cfg, smi):
           wave_bytes_total=total, biggest_pair_bytes=biggest, card=smi)
 
 
+@contextlib.contextmanager
+def stage_timers(stages):
+    """Host time of each stage, summed over the threads that ran it, while
+    the block runs. ``stages``: {name: (module, attribute)}; yields
+    {"totals": {name: [seconds, calls]}, "decode_span": [first start, last
+    end]} (the span of the "decode_moves" and "moves_to_alignment" stages)."""
+    import threading
+
+    lock = threading.Lock()
+    rec = {"totals": {name: [0.0, 0] for name in stages}, "decode_span": [None, None]}
+    span = rec["decode_span"]
+    real = {name: getattr(mod, attr) for name, (mod, attr) in stages.items()}
+
+    def timed(name):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            t1 = time.perf_counter()
+            with lock:
+                rec["totals"][name][0] += t1 - t0
+                rec["totals"][name][1] += 1
+                if name in ("decode_moves", "moves_to_alignment"):
+                    span[0] = min(span[0] or t0, t0)
+                    span[1] = max(span[1] or t1, t1)
+            return out
+        return call
+
+    for name, (mod, attr) in stages.items():
+        setattr(mod, attr, timed(name))
+    try:
+        yield rec
+    finally:
+        for name, (mod, attr) in stages.items():
+            setattr(mod, attr, real[name])
+
+
 def host_stages(smi):
     """Where big13's wall time goes under fill_mode=auto: host time of each
     stage (summed over the threads that ran it), the kernels' device time
     by events, and when the device finished, from the run's start."""
-    import threading
-
     import torch
 
     from msa_tpu_torch.models import kway
@@ -1080,28 +1145,7 @@ def host_stages(smi):
         "decode_moves": (batch, "pair_moves"), "moves_to_alignment": (batch, "moves_to_alignment"),
         "pair_hash": (kway, "pair_hash"), "chain": (kway, "chain_hashes"),
     }
-    lock = threading.Lock()
-    totals = {name: [0.0, 0] for name in stages}
-    decode_span = [None, None]
-    real = {name: getattr(mod, attr) for name, (mod, attr) in stages.items()}
-
-    def timed(name):
-        def call(*a, **kw):
-            t0 = time.perf_counter()
-            out = real[name](*a, **kw)
-            t1 = time.perf_counter()
-            with lock:
-                totals[name][0] += t1 - t0
-                totals[name][1] += 1
-                if name in ("decode_moves", "moves_to_alignment"):
-                    decode_span[0] = min(decode_span[0] or t0, t0)
-                    decode_span[1] = max(decode_span[1] or t1, t1)
-            return out
-        return call
-
-    for name, (mod, attr) in stages.items():
-        setattr(mod, attr, timed(name))
-    try:
+    with stage_timers(stages) as rec:
         torch.cuda.synchronize()
         mark = torch.cuda.Event(enable_timing=True)
         mark.record()
@@ -1109,11 +1153,9 @@ def host_stages(smi):
             t0 = time.perf_counter()
             lines, seconds = run_cli(["--backend", "cuda", "--input", "data/mseq-big13-example.txt"])
         torch.cuda.synchronize()
-    finally:
-        for name, (mod, attr) in stages.items():
-            setattr(mod, attr, real[name])
     if lines[1] != BIG13_HASH or lines[2].split() != [str(p) for p in BIG13_PENALTIES]:
         raise AssertionError("big13 under the stage timers is not golden")
+    totals, decode_span = rec["totals"], rec["decode_span"]
     phase("big13_host_stages", fill_mode="auto", hash=BIG13_HASH, seconds=seconds,
           stages_ms={k: v[0] * 1e3 for k, v in totals.items()},
           calls={k: v[1] for k, v in totals.items()},
@@ -1123,6 +1165,219 @@ def host_stages(smi):
           walk_device_ms=[a.elapsed_time(b) for a, b in spans["walk"]],
           device_done_after_start_ms=mark.elapsed_time(spans["walk"][-1][1]),
           card=smi)
+
+
+@contextlib.contextmanager
+def arg_spy(module, name, record):
+    """Append ``record(*args, **kwargs)`` of each call of ``module.<name>``
+    in the block to the list it yields."""
+    seen = []
+    real = getattr(module, name)
+
+    def call(*a, **kw):
+        seen.append(record(*a, **kw))
+        return real(*a, **kw)
+
+    setattr(module, name, call)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def pod_oracle(problem, tasks, count, seed):
+    """{task index: the native host kernel's (penalty, align1, align2)} of
+    ``count`` tasks: the largest pair, the smallest, and the rest drawn by
+    ``seed``; computed on threads (the host kernel releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from msa_tpu_torch.native import nw_align_native
+
+    genes = problem.genes
+    cost = [len(genes[t.i]) * len(genes[t.j]) for t in tasks]
+    ends = [max(range(len(tasks)), key=cost.__getitem__), min(range(len(tasks)), key=cost.__getitem__)]
+    rest = np.setdiff1d(np.arange(len(tasks)), ends)
+    picked = ends + sorted(np.random.default_rng(seed).choice(rest, count - 2, replace=False).tolist())
+    with ThreadPoolExecutor(len(picked)) as pool:
+        want = pool.map(lambda t: nw_align_native(genes[tasks[t].i], genes[tasks[t].j],
+                                                  problem.pxy, problem.pgap), picked)
+        return dict(zip(picked, want))
+
+
+def pod_check(name, golden, chain_hash, penalties):
+    """Fail unless the output is the golden's: chain hash and every penalty."""
+    if chain_hash == golden["chain_hash"] and list(penalties) == golden["penalties"]:
+        return
+    differ = [t for t, (a, b) in enumerate(zip(penalties, golden["penalties"])) if a != b]
+    raise AssertionError(
+        f"{name}: not golden: hash {chain_hash[:16]} (golden {golden['chain_hash'][:16]}),"
+        f" {len(penalties)} penalties, first task ids whose penalty differs: {differ[:20]}")
+
+
+def pod_run(name, problem, golden, mode, oracle, smi, hbm_budget=0, min_parts=1):
+    """One pod workload through ``align_kway`` on the card under ``mode``,
+    gated on the golden's hash and penalties and on ``oracle``'s alignments.
+    Prints the waves (banded: one fill launch each, its pairs and bytes) or
+    the halves (conveyor: one ``conveyor_state`` each), each fill and walk
+    launch's device ms (CUDA events) and the walk's blocks, the device span
+    from the first fill to the last walk, its idle share (1 - the kernels'
+    summed event time over the wall), peak device memory beside the card's
+    total, the host decode and ``pair_hash``."""
+    import gc
+
+    import torch
+
+    from msa_tpu_torch.config import TorchConfig
+    from msa_tpu_torch.models import kway
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import batch
+    from msa_tpu_torch.ops import conveyor as cv
+    from msa_tpu_torch.ops import walk as wk
+
+    banded = mode != "conveyor"
+    module, fill = (batch, "band_fill") if banded else (cv, "conveyor_fill")
+    kernels = {fill: getattr(bf if banded else cv, fill), "walk": wk.walk}
+    genes = problem.genes
+    num = golden["pairs"]
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    cfg = TorchConfig.from_env(fill_mode=mode, hbm_budget=hbm_budget)
+    budget = bf.device_budget(dev, cfg.hbm_budget)
+    if banded:
+        parts_spy = arg_spy(batch, "band_fill", lambda table, plan, *a: {
+            "pairs": plan.num_pairs, "bytes": int(batch.pair_bytes(plan).sum()),
+            "items": plan.num_items})
+    else:
+        parts_spy = arg_spy(cv, "conveyor_state", lambda wl, device: {
+            "pairs": wl.num_pairs, "snapshot_bytes": wl.snapshot_bytes, "sweeps": wl.num_sweeps})
+    stages = {"decode_moves": (module, "pair_moves"),
+              "moves_to_alignment": (module, "moves_to_alignment"),
+              "pair_hash": (kway, "pair_hash"), "chain": (kway, "chain_hashes")}
+    for fn in kernels.values():
+        fn.launches = fn.pairs = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with stage_timers(stages) as rec, parts_spy as parts, \
+            arg_spy(module, "walk", lambda table, wplan, *a: wplan.num_pairs) as walk_blocks, \
+            launch_events(module, [fill, "walk"]) as spans:
+        t0 = time.perf_counter()
+        res = kway.align_kway(problem, backend="cuda", keep_alignments=True, config=cfg)
+        seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    if min(launches.values()) < 1 or kernels[fill].pairs != num:
+        raise AssertionError(f"{name} {mode}: not every pair on the kernels: {launches}")
+    pod_check(f"{name} {mode}", golden, res.chain_hash, res.penalties)
+    for t, want in oracle.items():
+        r = res.pair_results[t]
+        if (r.penalty, r.align1, r.align2) != want:
+            raise AssertionError(f"{name} {mode}: task {t} differs from nw_align_native")
+    if len(parts) < min_parts:
+        raise AssertionError(f"{name} {mode}: {len(parts)} parts, expected {min_parts} or more")
+    del res
+    fill_ms = [a.elapsed_time(b) for a, b in spans[fill]]
+    walk_ms = [a.elapsed_time(b) for a, b in spans["walk"]]
+    busy = sum(fill_ms) + sum(walk_ms)
+    totals, span = rec["totals"], rec["decode_span"]
+    fields = {
+        "fill_mode": mode, "pairs": num, "cells": golden["cells"], "seconds": seconds,
+        "gcups": golden["cells"] / seconds / 1e9, "hash_prefix": golden["chain_hash"][:16],
+        "golden": True, "oracle_pairs": sorted(oracle), "free_at_start_bytes": free,
+        "device_budget_bytes": budget, "hbm_budget": hbm_budget,
+        ("waves" if banded else "halves"): parts, "fill_ms": fill_ms, "walk_ms": walk_ms,
+        "walk_blocks": walk_blocks,
+        "device_span_ms": spans[fill][0][0].elapsed_time(spans["walk"][-1][1]),
+        "busy_ms": busy, "idle_share": max(0.0, 1 - busy / (seconds * 1e3)),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev), "card_total_bytes": total,
+        "decode_ms": (totals["decode_moves"][0] + totals["moves_to_alignment"][0]) * 1e3,
+        "decode_wall_ms": (span[1] - span[0]) * 1e3,
+        "pair_hash_ms": totals["pair_hash"][0] * 1e3, "chain_ms": totals["chain"][0] * 1e3,
+        "launches": launches}
+    phase(name, **fields, card=smi)
+
+
+def pod64(smi):
+    """``gen_workload --k 64`` (2,016 pairs) against ``goldens/pod64.json``
+    under ``auto`` (two waves), ``banded`` with a budget forced to four
+    waves or more, ``conveyor``, and ``conveyor`` with a budget forced
+    under a third of its snapshots (its split in halves, twice over); then
+    the fill-mode A/B through ``scripts/ab_compare.py``, three runs each,
+    alternating."""
+    from msa_tpu_torch.config import TorchConfig
+    from msa_tpu_torch.goldens import pod
+    from msa_tpu_torch.ops import band_fill as bf
+    from msa_tpu_torch.ops import batch
+    from msa_tpu_torch.ops import conveyor as cv
+    from msa_tpu_torch.scripts import ab_compare
+    from msa_tpu_torch.utils.tasks import pair_task_list
+
+    golden = pod.load(64)
+    problem = pod.problem_of(golden)
+    tasks = pair_task_list(problem.k)
+    oracle = pod_oracle(problem, tasks, 4, seed=64)
+    cfg = TorchConfig()
+    sizes = batch.pair_bytes(bf.plan_pairs([len(g) for g in problem.genes],
+                                           [(t.i, t.j) for t in tasks], cfg.rb, cfg.snap_k))
+    four = 2 * max(int(sizes.max()), -(-int(sizes.sum()) // 4))
+    pod_run("pod64", problem, golden, "auto", oracle, smi, min_parts=2)
+    pod_run("pod64", problem, golden, "banded", oracle, smi, hbm_budget=four, min_parts=4)
+    pod_run("pod64", problem, golden, "conveyor", oracle, smi)
+    import torch
+
+    wl = cv.plan_sweeps(problem.genes, [(t.i, t.j) for t in tasks], cfg.rb_conveyor, cfg.snap_k,
+                        cv.conveyor_sweeps(cfg, torch.device("cuda", 0)))
+    pod_run("pod64", problem, golden, "conveyor", oracle, smi, hbm_budget=wl.snapshot_bytes // 3,
+            min_parts=4)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ab_compare.main(["--gen", "k=64", "--reps", "3",
+                              "--config", "banded:fill_mode=banded",
+                              "--config", "conveyor:fill_mode=conveyor"])
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1]) if rc == 0 else {}
+    if rc != 0 or not summary["golden"]:
+        raise AssertionError(f"pod64 A/B: rc {rc}, not gated on the golden: {buf.getvalue()[-500:]}")
+    phase("pod64_fill_mode_ab", **summary, card=smi)
+
+
+def pod256(smi):
+    """``gen_workload --k 256`` (32,640 pairs, over the card's memory)
+    against ``goldens/pod256.json``: through the CLI in a fresh process,
+    then in this process under ``auto`` (waves that ``device_budget``
+    gives: three or more) and ``conveyor`` (halves); 8 pairs against the
+    native host kernel."""
+    import gc
+
+    import torch
+
+    from msa_tpu_torch.goldens import pod
+    from msa_tpu_torch.scripts.gen_workload import write_problem
+    from msa_tpu_torch.utils.tasks import pair_task_list
+
+    golden = pod.load(256)
+    problem = pod.problem_of(golden)
+    oracle = pod_oracle(problem, pair_task_list(problem.k), 8, seed=256)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pod256.dat")
+        with open(path, "w") as f:
+            write_problem(problem, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "msa_tpu_torch.cli", "--input", path],
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"pod256 through the CLI failed:\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.split("\n")
+    pod_check("pod256 cli", golden, lines[1], [int(v) for v in lines[2].split()])
+    phase("pod256_cli", time_line=lines[0], wall_seconds=wall, hash_prefix=lines[1][:16],
+          penalties=len(lines[2].split()), golden=True, card=smi)
+    pod_run("pod256", problem, golden, "auto", oracle, smi, min_parts=3)
+    pod_run("pod256", problem, golden, "conveyor", oracle, smi)
 
 
 def sync_all():
@@ -1474,7 +1729,12 @@ def main() -> int:
     striped_launches = spec_cap(cfg, smi)
     spec_cap_cli(smi)
 
-    # 15. summary
+    # 15. the pod-scale workloads and the first call
+    pod64(smi)
+    pod256(smi)
+    conformance_first_call(smi)
+
+    # 16. summary
     sources = {
         "band_fill": ("msa_tpu_torch/csrc/band_fill.cu", "msa_tpu/ops/pallas_nw.py:79"),
         "walk": ("msa_tpu_torch/csrc/walk.cu", "msa_tpu/ops/pallas_walk.py:80"),

@@ -1,0 +1,1 @@
+"""Harness of the port: the counterparts of the JAX package's ``scripts/``."""

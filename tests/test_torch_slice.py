@@ -159,6 +159,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "msa_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "fill_ablation.py", REPO / "walk_ablation.py"]
     assert len(files) > 8
+    assert {REPO / "msa_tpu_torch" / "scripts" / "conformance.py",
+            REPO / "msa_tpu_torch" / "goldens" / "pod.py"} <= set(files)
     for path in files:
         for name in _imports(path):
             # The port keeps its own copies of the host code it shares with
@@ -174,7 +176,9 @@ def test_port_modules_leave_jax_unimported():
     assert {"msa_tpu_torch/parallel/engine.py", "msa_tpu_torch/parallel/costmodel.py",
             "msa_tpu_torch/parallel/mesh.py", "msa_tpu_torch/ops/nw_torch.py",
             "msa_tpu_torch/utils/timing.py", "msa_tpu_torch/utils/logging.py",
-            "msa_tpu_torch/ops/nw_striped.py", "msa_tpu_torch/goldens/spec_cap.py"} <= rel
+            "msa_tpu_torch/ops/nw_striped.py", "msa_tpu_torch/goldens/spec_cap.py",
+            "msa_tpu_torch/goldens/pod.py", "msa_tpu_torch/scripts/gen_workload.py",
+            "msa_tpu_torch/scripts/ab_compare.py", "msa_tpu_torch/scripts/conformance.py"} <= rel
     modules = [
         ".".join(p.relative_to(REPO).with_suffix("").parts[:-1] if p.name == "__init__.py"
                  else p.relative_to(REPO).with_suffix("").parts)
