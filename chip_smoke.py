@@ -91,7 +91,19 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    launches, device span, idle share, peak memory and host stages; then
    ``conformance_first_call``: ``scripts/conformance.py``, each dataset in
    a fresh process, the first call apart from three warm runs;
-16. one JSON line of the kernels' launches (the ``auto`` run's for the
+16. pair distribution on the one card and the rest of the harness:
+   ``schedule_compare`` (``scripts/schedule_compare.py``: lpt and calibrated
+   on ``data/xulin_adversarial.dat``, 12 shards, each shard's measured time
+   beside the cost model's prediction, each policy's shards together
+   golden); ``distributed_pod64`` (pod64 through four ``--distributed``
+   processes on this card under ``auto`` and ``conveyor``: golden, journals
+   disjoint over the 2,016 tasks, each process on cuda:0 with a quarter of
+   75 % of the card's memory as its budget, its kernels launched);
+   ``sweep_rb`` and ``sweep_e2e`` (``scripts/sweep.py``: the band ladder on
+   the 90,000 x 85,000 pair, every rb's score equal; the e2e grid at banded
+   and conveyor, each a fresh big13 process, golden); ``scaling_one_card``
+   (``scripts/scaling_curve.py`` sections (a) and (b) at one device);
+17. one JSON line of the kernels' launches (the ``auto`` run's for the
    kernels it runs; the conveyor fill's from its own path's run, beside
    ``auto_launches``), errors, times and bounds, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -101,9 +113,10 @@ without either.
 
     python3 chip_smoke.py --cards
 
-runs only a lone pair's striped fill across distinct cards (two or more;
-on one card a relay is a store into another launch's buffers, here a peer
-store over the cards' link, released and acquired at system scope):
+runs a lone pair's striped fill across distinct cards (two or more; on
+one card a relay is a store into another launch's buffers, here a peer
+store over the cards' link, released and acquired at system scope), then
+the pairs distributed over processes and cards:
 
 1. setup: every card's name and power limit, peer access between
    neighbours, the fill and walk kernels built;
@@ -118,7 +131,22 @@ store over the cards' link, released and acquired at system scope):
    fill (``striped_fill`` or ``band_fill`` alone) and the whole route timed
    on the host with every card synchronised (a CUDA event cannot time a
    span that starts on one card and ends on another), and each card's peak
-   memory.
+   memory;
+4. ``cards_pod256``: pod256 through the CLI with P = 1, 2 and 4 (at most D)
+   ``--distributed`` processes, each on one card of its own, then 4
+   processes all on cuda:0, then one process over all D cards (device
+   threads), after one calibration into a fresh cache (``cards_calibrate``);
+   each run golden (hash and every penalty), with ``Time:``, the wall, and
+   for each process (run as ``chip_smoke.py --traced-cli OUT -- <cli
+   args>``) its pairs, cards, waves, fill and walk launches by CUDA events
+   on each card, idle share and peak memory of each card, decode,
+   ``pair_hash`` and ``os.cpu_count()``; a card outside a process's own
+   (its shard log line or its launches) fails the phase;
+   ``cards_scaling``: ``scripts/scaling_curve.py`` (a) over 1, 2, 4 cards
+   and (c) on pod64 over 1, 2, 4 local devices; ``cards_schedule``:
+   ``data/xulin_adversarial.dat`` and pod64 through D processes on D cards
+   under lpt and calibrated in turns, three times each, golden, the makespan
+   the longest process's ``align_shard``.
 """
 
 from __future__ import annotations
@@ -203,26 +231,54 @@ def fill_bound(genes, pairs, out_ints):
     return bound(cells, seq_bytes(genes, pairs) + 4 * out_ints)
 
 
-def walk_work(words, counts, wplan):
-    """What one walk launch did, per pair, from its output: moves, segments,
-    barrier steps, the cells of each segment's cone (the cells the walk can
-    reach: lanes q - u .. q, u steps back from the entry step, none below
-    lane 0) and the snapshot lanes the cones start from."""
+def segment_work(m, n, moves, rb, snap_k):
+    """What the walk does for one pair of m x n whose backward move stream is
+    ``moves``: moves, segments, barrier steps, the cells of each segment's
+    cone (the cells the walk can reach: lanes q - u .. q, u steps back from
+    the entry step, none below lane 0) and the snapshot lanes the cones
+    start from."""
     import numpy as np
 
     from msa_tpu_torch.ops import walk as wk
 
+    steps, q = wk.walk_segments(m, n, moves, rb, snap_k).T
+    cone = np.where(q >= steps - 1, steps * (steps + 1) // 2,
+                    (q + 1) * (q + 2) // 2 + (steps - 1 - q) * (q + 1))
+    return {"m": m, "n": n, "moves": len(moves), "segments": len(steps),
+            "steps": int(steps.sum()), "cone_cells": int(cone.sum()),
+            "lanes_loaded": int((np.minimum(steps - 1, q) + 1).sum())}
+
+
+def walk_work(words, counts, wplan):
+    """``segment_work`` of each pair of one walk launch, from its output."""
+    from msa_tpu_torch.ops import walk as wk
+
     words, counts = words.cpu().numpy(), counts.cpu().numpy()
+    return [segment_work(*(int(v) for v in wplan.pairs[p, [wk.W_M, wk.W_N]]),
+                         wk.pair_moves(words, counts, wplan, p), wplan.rb, wplan.snap_k)
+            for p in range(wplan.num_pairs)]
+
+
+def alignment_work(genes, tasks, results, rb, snap_k):
+    """``segment_work`` of each pair the banded walk traced (x = genes[t.i]),
+    its moves read back from the pair's alignment (``utils/alignment.py``):
+    from the last column backward, a gap in the second string is an up move
+    (2), a gap in the first a left move (3), else a diagonal, up to the
+    column where the walk reaches a border (the rest is the completed
+    prefix, which the walk does not trace)."""
+    import numpy as np
+
+    from msa_tpu_torch.utils.alignment import GAP
+
     work = []
-    for p in range(wplan.num_pairs):
-        m, n = (int(v) for v in wplan.pairs[p, [wk.W_M, wk.W_N]])
-        moves = wk.pair_moves(words, counts, wplan, p)
-        steps, q = wk.walk_segments(m, n, moves, wplan.rb, wplan.snap_k).T
-        cone = np.where(q >= steps - 1, steps * (steps + 1) // 2,
-                        (q + 1) * (q + 2) // 2 + (steps - 1 - q) * (q + 1))
-        work.append({"m": m, "n": n, "moves": len(moves), "segments": len(steps),
-                     "steps": int(steps.sum()), "cone_cells": int(cone.sum()),
-                     "lanes_loaded": int((np.minimum(steps - 1, q) + 1).sum())})
+    for t, r in zip(tasks, results):
+        m, n = len(genes[t.i]), len(genes[t.j])
+        gap1, gap2 = (np.frombuffer(a.encode("latin-1"), np.uint8)[::-1] == ord(GAP)
+                      for a in (r.align1, r.align2))
+        moves = np.where(gap2, 2, np.where(gap1, 3, 0))
+        border = (np.cumsum(~gap1) == m) | (np.cumsum(~gap2) == n)
+        moves = moves[: int(np.argmax(border)) + 1]
+        work.append(segment_work(m, n, moves, rb, snap_k))
     return work
 
 
@@ -430,7 +486,7 @@ def spec_cap(cfg, smi):
                                                    snap_k=cfg.snap_k)
                 torch.cuda.synchronize()
                 first = spans["launch"][0][0]
-                fill = max(first.elapsed_time(end) for _, end in spans["launch"])
+                fill = max(first.elapsed_time(end) for _, end, _ in spans["launch"])
                 route_fill = spans["striped_fill"][0][0].elapsed_time(spans["striped_fill"][0][1])
             e2e = (time.perf_counter() - t0) * 1e3
             walk_ms = spans["walk"][0][0].elapsed_time(spans["walk"][0][1])
@@ -756,58 +812,88 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def run_processes(commands, env, timeout):
+    """Start every command at once from the repository's root; returns their
+    (stdout, stderr) and the wall seconds until the last ends. Fails unless
+    each exits 0; kills any still running."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in commands]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"process {i} of {len(procs)} failed (rc {p.returncode}):\n"
+                                 f"{err[-3000:]}")
+    return outs, seconds
+
+
+def cli_processes(nproc, args, journal=None):
+    """The commands of ``nproc`` ``--distributed`` CLI processes on ``args``
+    (gloo on 127.0.0.1), each journaling to ``journal`` when given."""
+    port = free_port()
+    extra = ["--checkpoint", journal] if journal else []
+    return [[sys.executable, "-m", "msa_tpu_torch.cli", "--distributed", "--coordinator",
+             f"127.0.0.1:{port}", "--num-processes", str(nproc), "--process-id", str(pid),
+             *args, *extra] for pid in range(nproc)]
+
+
+def shard_logs(outs):
+    """Each process's ``shard`` log line (``parallel/engine.py``), as a dict."""
+    logs = []
+    for _, err in outs:
+        line = next(ln for ln in err.splitlines() if "msa_tpu_torch.engine: shard " in ln)
+        logs.append(json.loads(line.split("shard ", 1)[1]))
+    return logs
+
+
+def journal_owners(journal, nproc, total):
+    """{task id: process} from the processes' journals; fails unless they
+    cover the ``total`` tasks disjointly."""
+    owner = {}
+    for pid in range(nproc):
+        with open(journal.replace("{proc}", str(pid))) as f:
+            for rec in map(json.loads, f):
+                if rec["task_id"] in owner:
+                    raise AssertionError(f"task {rec['task_id']} journaled twice")
+                owner[rec["task_id"]] = pid
+    if sorted(owner) != list(range(total)):
+        raise AssertionError(f"the journals cover {len(owner)} of {total} tasks")
+    return owner
+
+
+def check_launches(logs, fill):
+    for sh in logs:
+        if sh["launches"][fill] < 1 or sh["launches"]["walk"] < 1:
+            raise AssertionError(f"process {sh['process']} did not run on the kernels: {sh}")
+
+
 def distributed(smi):
     """big13 through two ``--distributed`` CLI processes on this one card."""
     from msa_tpu_torch.config import TorchConfig
     from msa_tpu_torch.models.kway import choose_fill_mode
 
-    port = free_port()
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, MSA_TPU_TORCH_LOG="INFO", XDG_CACHE_HOME=tmp)
-        t0 = time.perf_counter()
-        procs = [
-            subprocess.Popen(
-                [sys.executable, "-m", "msa_tpu_torch.cli", "--distributed", "--backend", "cuda",
-                 "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
-                 "--process-id", str(pid), "--input", "data/mseq-big13-example.txt",
-                 "--checkpoint", os.path.join(tmp, "j-{proc}.jsonl")],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            )
-            for pid in range(2)
-        ]
-        try:
-            outs = [p.communicate(timeout=600) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        seconds = time.perf_counter() - t0
-        for p, (_, err) in zip(procs, outs):
-            if p.returncode != 0:
-                raise AssertionError(f"distributed process failed:\n{err[-3000:]}")
+        journal = os.path.join(tmp, "j-{proc}.jsonl")
+        outs, seconds = run_processes(cli_processes(
+            2, ["--backend", "cuda", "--input", "data/mseq-big13-example.txt"], journal),
+            env, timeout=600)
         lines = outs[0][0].split("\n")
         if lines[1] != BIG13_HASH or lines[2].split() != [str(p) for p in BIG13_PENALTIES]:
             raise AssertionError(f"process 0 printed no golden output: {outs[0][0][:300]}")
         if outs[1][0] != "":
             raise AssertionError(f"process 1 printed: {outs[1][0][:300]}")
-        owner = {}
-        for pid in range(2):
-            with open(os.path.join(tmp, f"j-{pid}.jsonl")) as f:
-                for rec in map(json.loads, f):
-                    if rec["task_id"] in owner:
-                        raise AssertionError(f"task {rec['task_id']} journaled twice")
-                    owner[rec["task_id"]] = pid
-        if sorted(owner) != list(range(78)):
-            raise AssertionError(f"the journals cover {len(owner)} of 78 tasks")
-    shards = []
-    for _, err in outs:
-        line = next(ln for ln in err.splitlines() if "msa_tpu_torch.engine: shard " in ln)
-        shards.append(json.loads(line.split("shard ", 1)[1]))
-    fill = {"banded": "band_fill", "conveyor": "conveyor_fill"}[choose_fill_mode(TorchConfig())]
-    for sh in shards:
-        if sh["launches"][fill] < 1 or sh["launches"]["walk"] < 1:
-            raise AssertionError(f"process {sh['process']} did not run on the kernels: {sh}")
+        owner = journal_owners(journal, 2, 78)
+    shards = shard_logs(outs)
+    check_launches(shards, {"banded": "band_fill", "conveyor": "conveyor_fill"}[
+        choose_fill_mode(TorchConfig())])
     phase("distributed", processes=2, hash=BIG13_HASH, seconds=seconds,
           pairs=[sh["pairs"] for sh in shards], policy=shards[0]["policy"],
           launches=[sh["launches"] for sh in shards], time_us=int(lines[0].split()[1]),
@@ -991,7 +1077,7 @@ def one_band_ab(banded, conveyor, smi):
             if (r.penalty, r.align1, r.align2) != want:
                 raise AssertionError(f"one-band {mode}: task {t.task_id} differs from the native oracle")
         run = {"seconds": seconds, "gcups": cells / seconds / 1e9,
-               "fill_ms": sum(a.elapsed_time(b) for a, b in spans[fill]),
+               "fill_ms": sum(a.elapsed_time(b) for a, b, _ in spans[fill]),
                "fill_launches": launches[fill], "peak_device_bytes": torch.cuda.max_memory_allocated()}
         runs[mode].append(run)
         phase("one_band_ab", fill_mode=mode, pairs=len(tasks), cells=cells,
@@ -1008,7 +1094,8 @@ def one_band_ab(banded, conveyor, smi):
 @contextlib.contextmanager
 def launch_events(module, names):
     """Record a CUDA event before and after each call of ``module.<name>``,
-    on the stream current at the call; yields {name: [(start, end), ...]}."""
+    on the stream current at the call; yields {name: [(start, end, card
+    index), ...]}."""
     import torch
 
     spans = {name: [] for name in names}
@@ -1021,7 +1108,7 @@ def launch_events(module, names):
             start.record()
             out = real[name](*a, **kw)
             end.record()
-            spans[name].append((start, end))
+            spans[name].append((start, end, torch.cuda.current_device()))
             return out
         # A wrapper defined in ``module`` counts its launches under its
         # module name, which is this function while the block runs.
@@ -1078,8 +1165,8 @@ def big13_waves(genes, pairs, banded, cfg, smi):
         if got != len(spans["walk"]) or not (got == waves if waves < 4 else got >= waves):
             raise AssertionError(f"big13 {name}: {launches} launches, expected {waves} waves")
         first, last = spans["band_fill"][0][0], spans["walk"][-1][1]
-        fill_ms = sum(a.elapsed_time(b) for a, b in spans["band_fill"])
-        walk_ms = sum(a.elapsed_time(b) for a, b in spans["walk"])
+        fill_ms = sum(a.elapsed_time(b) for a, b, _ in spans["band_fill"])
+        walk_ms = sum(a.elapsed_time(b) for a, b, _ in spans["walk"])
         run = {"seconds": seconds, "waves": got, "fill_ms": fill_ms, "walk_ms": walk_ms,
                "device_span_ms": first.elapsed_time(last),
                "rest_ms": seconds * 1e3 - fill_ms - walk_ms,
@@ -1161,8 +1248,8 @@ def host_stages(smi):
           calls={k: v[1] for k, v in totals.items()},
           decode_wall_ms=(decode_span[1] - decode_span[0]) * 1e3,
           decode_ends_after_start_ms=(decode_span[1] - t0) * 1e3,
-          fill_device_ms=[a.elapsed_time(b) for a, b in spans["band_fill"]],
-          walk_device_ms=[a.elapsed_time(b) for a, b in spans["walk"]],
+          fill_device_ms=[a.elapsed_time(b) for a, b, _ in spans["band_fill"]],
+          walk_device_ms=[a.elapsed_time(b) for a, b, _ in spans["walk"]],
           device_done_after_start_ms=mark.elapsed_time(spans["walk"][-1][1]),
           card=smi)
 
@@ -1224,7 +1311,8 @@ def pod_run(name, problem, golden, mode, oracle, smi, hbm_budget=0, min_parts=1)
     launch's device ms (CUDA events) and the walk's blocks, the device span
     from the first fill to the last walk, its idle share (1 - the kernels'
     summed event time over the wall), peak device memory beside the card's
-    total, the host decode and ``pair_hash``."""
+    total, the host decode and ``pair_hash``, and each kernel's time beside
+    its bound (the walk's, from the run's own moves, under ``auto``)."""
     import gc
 
     import torch
@@ -1235,6 +1323,7 @@ def pod_run(name, problem, golden, mode, oracle, smi, hbm_budget=0, min_parts=1)
     from msa_tpu_torch.ops import batch
     from msa_tpu_torch.ops import conveyor as cv
     from msa_tpu_torch.ops import walk as wk
+    from msa_tpu_torch.utils.tasks import pair_task_list
 
     banded = mode != "conveyor"
     module, fill = (batch, "band_fill") if banded else (cv, "conveyor_fill")
@@ -1250,10 +1339,11 @@ def pod_run(name, problem, golden, mode, oracle, smi, hbm_budget=0, min_parts=1)
     if banded:
         parts_spy = arg_spy(batch, "band_fill", lambda table, plan, *a: {
             "pairs": plan.num_pairs, "bytes": int(batch.pair_bytes(plan).sum()),
-            "items": plan.num_items})
+            "items": plan.num_items, "out_ints": plan.num_pairs + plan.rows_len + plan.snaps_len})
     else:
         parts_spy = arg_spy(cv, "conveyor_state", lambda wl, device: {
-            "pairs": wl.num_pairs, "snapshot_bytes": wl.snapshot_bytes, "sweeps": wl.num_sweeps})
+            "pairs": wl.num_pairs, "snapshot_bytes": wl.snapshot_bytes, "sweeps": wl.num_sweeps,
+            "out_ints": wl.num_pairs + wl.brow_len + wl.snaps_len})
     stages = {"decode_moves": (module, "pair_moves"),
               "moves_to_alignment": (module, "moves_to_alignment"),
               "pair_hash": (kway, "pair_hash"), "chain": (kway, "chain_hashes")}
@@ -1278,10 +1368,22 @@ def pod_run(name, problem, golden, mode, oracle, smi, hbm_budget=0, min_parts=1)
             raise AssertionError(f"{name} {mode}: task {t} differs from nw_align_native")
     if len(parts) < min_parts:
         raise AssertionError(f"{name} {mode}: {len(parts)} parts, expected {min_parts} or more")
-    del res
-    fill_ms = [a.elapsed_time(b) for a, b in spans[fill]]
-    walk_ms = [a.elapsed_time(b) for a, b in spans["walk"]]
+    fill_ms = [a.elapsed_time(b) for a, b, _ in spans[fill]]
+    walk_ms = [a.elapsed_time(b) for a, b, _ in spans["walk"]]
     busy = sum(fill_ms) + sum(walk_ms)
+    # Each kernel's bound over all its launches: the fill's from the cells
+    # and the parts' outputs; the main path's walk from this run's own moves.
+    tasks = pair_task_list(problem.k)
+    bounds = {"fill": fill_bound(genes, [(t.i, t.j) for t in tasks],
+                                 sum(p["out_ints"] for p in parts))}
+    if mode == "auto":
+        bounds["walk"] = walk_bound(alignment_work(genes, tasks, res.pair_results, cfg.rb,
+                                                   cfg.snap_k))
+    del res
+    for kernel, (bound_ms, bound_by) in bounds.items():
+        spent = sum(fill_ms if kernel == "fill" else walk_ms)
+        bounds[kernel] = {"bound_ms": bound_ms, "bound_by": bound_by,
+                          "ms": spent, "share_of_bound": bound_ms / spent}
     totals, span = rec["totals"], rec["decode_span"]
     fields = {
         "fill_mode": mode, "pairs": num, "cells": golden["cells"], "seconds": seconds,
@@ -1291,7 +1393,7 @@ def pod_run(name, problem, golden, mode, oracle, smi, hbm_budget=0, min_parts=1)
         ("waves" if banded else "halves"): parts, "fill_ms": fill_ms, "walk_ms": walk_ms,
         "walk_blocks": walk_blocks,
         "device_span_ms": spans[fill][0][0].elapsed_time(spans["walk"][-1][1]),
-        "busy_ms": busy, "idle_share": max(0.0, 1 - busy / (seconds * 1e3)),
+        "busy_ms": busy, "idle_share": max(0.0, 1 - busy / (seconds * 1e3)), "bounds": bounds,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev), "card_total_bytes": total,
         "decode_ms": (totals["decode_moves"][0] + totals["moves_to_alignment"][0]) * 1e3,
         "decode_wall_ms": (span[1] - span[0]) * 1e3,
@@ -1354,7 +1456,6 @@ def pod256(smi):
     import torch
 
     from msa_tpu_torch.goldens import pod
-    from msa_tpu_torch.scripts.gen_workload import write_problem
     from msa_tpu_torch.utils.tasks import pair_task_list
 
     golden = pod.load(256)
@@ -1363,9 +1464,7 @@ def pod256(smi):
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "pod256.dat")
-        with open(path, "w") as f:
-            write_problem(problem, f)
+        path = write_input(problem, tmp, "pod256")
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "msa_tpu_torch.cli", "--input", path],
                               capture_output=True, text=True, timeout=900)
@@ -1378,6 +1477,132 @@ def pod256(smi):
           penalties=len(lines[2].split()), golden=True, card=smi)
     pod_run("pod256", problem, golden, "auto", oracle, smi, min_parts=3)
     pod_run("pod256", problem, golden, "conveyor", oracle, smi)
+
+
+def write_input(problem, tmp, name):
+    """``problem`` as a dataset file in ``tmp``; its path."""
+    from msa_tpu_torch.scripts.gen_workload import write_problem
+
+    path = os.path.join(tmp, f"{name}.dat")
+    with open(path, "w") as f:
+        write_problem(problem, f)
+    return path
+
+
+def schedule_compare_phase(smi):
+    """``scripts/schedule_compare.py`` on this card under a fresh cost-model
+    cache: both policies' 12 shards of ``data/xulin_adversarial.dat``, each
+    shard's time measured beside the cost model's prediction; the union of
+    each policy's shards must give the dataset's recorded golden."""
+    import re
+
+    from msa_tpu_torch.scripts import schedule_compare as sc
+
+    with tempfile.TemporaryDirectory() as tmp, set_env({"XDG_CACHE_HOME": tmp}):
+        out = os.path.join(tmp, "schedule_compare.json")
+        rc, lines = run_script(sc.main, ["--reps", "1", "--out", out])
+        printed = "\n".join(lines)
+        if rc != 0 or not json.loads(lines[-1])["golden"]:
+            raise AssertionError(f"schedule_compare: rc {rc}, not golden:\n{printed[-2000:]}")
+        with open(out) as f:
+            record = json.load(f)
+    shards = {}
+    for policy, pairs, measured, predicted in re.findall(
+            r"^(\w+) shard \d+: (\d+) pairs, measured ([\d.]+) s, predicted ([\d.]+) s$",
+            printed, re.M):
+        shards.setdefault(policy, []).append(
+            {"pairs": int(pairs), "measured_s": float(measured), "predicted_s": float(predicted)})
+    phase("schedule_compare", **record, golden=True, shards_measured_and_predicted=shards,
+          card=smi)
+
+
+def distributed_pod64(smi):
+    """``gen_workload --k 64`` through four ``--distributed`` CLI processes
+    on this one card, under ``auto`` and ``conveyor``: golden, the journals
+    disjoint over the 2,016 tasks, each process on cuda:0 with a quarter of
+    75 % of the card's total memory as its budget, and its fill and walk
+    launched. This process first hands back the memory its allocator
+    caches, which the four would otherwise not find free."""
+    import gc
+
+    import torch
+
+    from msa_tpu_torch.goldens import pod
+
+    golden = pod.load(64)
+    problem = pod.problem_of(golden)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.mem_get_info(0)[1]
+    quarter = 0.75 * total / 4
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_input(problem, tmp, "pod64")
+        for mode, fill in (("auto", "band_fill"), ("conveyor", "conveyor_fill")):
+            env = dict(os.environ, MSA_TPU_TORCH_LOG="INFO", XDG_CACHE_HOME=tmp,
+                       MSA_TPU_TORCH_FILL_MODE=mode)
+            journal = os.path.join(tmp, f"{mode}-{{proc}}.jsonl")
+            outs, seconds = run_processes(
+                cli_processes(4, ["--backend", "cuda", "--input", path], journal), env, timeout=600)
+            lines = outs[0][0].split("\n")
+            pod_check(f"distributed_pod64 {mode}", golden, lines[1], [int(v) for v in lines[2].split()])
+            if any(out for out, _ in outs[1:]):
+                raise AssertionError("a process other than process 0 printed")
+            owner = journal_owners(journal, 4, golden["pairs"])
+            logs = shard_logs(outs)
+            check_launches(logs, fill)
+            for sh in logs:
+                if (sh["cards"], sh["processes_on_card"]) != (["cuda:0"], [4]) or not (
+                        0.9 * quarter <= sh["device_budget"] <= quarter):
+                    raise AssertionError(f"process {sh['process']}: not a quarter of the card: {sh}")
+            phase("distributed_pod64", fill_mode=mode, processes=4, golden=True, seconds=seconds,
+                  time_us=int(lines[0].split()[1]), card_total_bytes=total,
+                  quarter_of_75_percent_bytes=quarter,
+                  budgets=[sh["device_budget"] for sh in logs],
+                  local_ranks=[sh["local_rank"] for sh in logs], cards=[sh["cards"] for sh in logs],
+                  pairs=[sh["pairs"] for sh in logs], policy=logs[0]["policy"],
+                  launches=[sh["launches"] for sh in logs], journaled=len(owner), card=smi)
+
+
+def run_script(main, argv):
+    """(exit code, printed lines) of a script's ``main(argv)``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def sweep_phases(smi):
+    """``scripts/sweep.py``: the band ladder (90,000 x 85,000, rb 1023 to
+    8191, every score equal to the one-launch score at rb 8191), then the
+    e2e grid at two configurations, banded and conveyor at the defaults,
+    each big13 run a fresh process gated on the golden."""
+    from msa_tpu_torch.scripts import sweep
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, lines = run_script(sweep.main, ["--reps", "3", "--out", os.path.join(tmp, "rb.jsonl")])
+        ladder = [json.loads(ln) for ln in lines]
+        if rc != 0 or len(ladder) != 4 or ladder[-1]["rb"] != 8191:
+            raise AssertionError(f"sweep ladder: rc {rc}: {ladder}")
+        phase("sweep_rb", records=ladder, score=ladder[-1]["score"], card=smi)
+        rc, lines = run_script(sweep.main, ["--e2e", "--reps", "1", "--out",
+                                            os.path.join(tmp, "e2e.jsonl")])
+        grid = [json.loads(ln) for ln in lines]
+        if rc != 0 or [r["fill_mode"] for r in grid] != ["banded", "conveyor"]:
+            raise AssertionError(f"sweep e2e grid: rc {rc}: {grid}")
+        phase("sweep_e2e", records=grid, golden=True, card=smi)
+
+
+def scaling_one_card(smi):
+    """``scripts/scaling_curve.py`` sections (a) and (b) at one device."""
+    from msa_tpu_torch.scripts import scaling_curve
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, lines = run_script(scaling_curve.main, ["--devices", "1", "--out",
+                                                    os.path.join(tmp, "scaling.jsonl")])
+    records = [json.loads(ln) for ln in lines]
+    if rc != 0 or [r["devices"] for r in records if r["metric"] == "sharded_scores"] != [1]:
+        raise AssertionError(f"scaling_curve: rc {rc}: {records}")
+    phase("scaling_one_card", records=records, card=smi)
 
 
 def sync_all():
@@ -1396,6 +1621,188 @@ def wall_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def traced_cli(out_path, args):
+    """``msa_tpu_torch.cli`` on ``args`` in this process, for the ``--cards``
+    phases: each fill and walk launch timed by CUDA events on its card, each
+    wave's card, pairs and bytes, the host decode and ``pair_hash`` timed;
+    the record goes to ``out_path`` as JSON. Returns the CLI's exit code."""
+    import torch
+
+    from msa_tpu_torch.cli import main as cli_main
+    from msa_tpu_torch.models import kway
+    from msa_tpu_torch.ops import batch
+
+    stages = {"decode_moves": (batch, "pair_moves"), "moves_to_alignment": (batch, "moves_to_alignment"),
+              "pair_hash": (kway, "pair_hash")}
+    with stage_timers(stages) as rec, arg_spy(batch, "band_fill", lambda table, plan, *a: {
+            "card": str(table.device), "pairs": plan.num_pairs,
+            "bytes": int(batch.pair_bytes(plan).sum())}) as waves, \
+            launch_events(batch, ["band_fill", "walk"]) as spans:
+        t0 = time.perf_counter()
+        rc = cli_main(args)
+        wall = time.perf_counter() - t0
+    cards = {}
+    for name, launched in spans.items():
+        for start, end, index in launched:
+            torch.cuda.synchronize(index)
+            cards.setdefault(f"cuda:{index}", {"band_fill": [], "walk": []})[name].append(
+                start.elapsed_time(end))
+    for card, times in cards.items():
+        busy = sum(times["band_fill"]) + sum(times["walk"])
+        times.update(busy_ms=busy, idle_share=max(0.0, 1 - busy / (wall * 1e3)),
+                     peak_device_bytes=torch.cuda.max_memory_allocated(card))
+    totals, span = rec["totals"], rec["decode_span"]
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, "wall_seconds": wall, "cpu_count": os.cpu_count(), "waves": waves,
+                   "cards": cards,
+                   "decode_ms": (totals["decode_moves"][0] + totals["moves_to_alignment"][0]) * 1e3,
+                   "decode_wall_ms": (span[1] - span[0]) * 1e3 if span[0] else 0.0,
+                   "pair_hash_ms": totals["pair_hash"][0] * 1e3}, f)
+    return rc
+
+
+def traced_processes(nproc, args, tmp, label):
+    """The commands of ``nproc`` traced CLI processes on ``args``
+    (``--distributed`` when ``nproc`` > 0; one plain process at 0), and the
+    paths their records go to."""
+    commands = cli_processes(nproc, args) if nproc else [
+        [sys.executable, "-m", "msa_tpu_torch.cli", *args]]
+    paths = [os.path.join(tmp, f"{label}-{pid}.json") for pid in range(len(commands))]
+    return [[sys.executable, "chip_smoke.py", "--traced-cli", path, "--", *cmd[3:]]
+            for cmd, path in zip(commands, paths)], paths
+
+
+def cards_calibrate(tmp):
+    """The cost model measured once on cuda:0 into the cache at ``tmp``,
+    before the timed runs, which read it."""
+    from msa_tpu_torch.parallel import costmodel
+
+    with set_env({"XDG_CACHE_HOME": tmp}):
+        t0 = time.perf_counter()
+        model = costmodel.calibrate(use_cache=False)
+    if model is None:
+        raise AssertionError("calibrate returned None on the card")
+    phase("cards_calibrate", fresh_cache=True, seconds=time.perf_counter() - t0, gcups=model.gcups,
+          fixed_us=model.fixed_us)
+
+
+def cards_pod(smi, count, k=256):
+    """``gen_workload --k`` ``k`` through the CLI, golden against
+    ``goldens/pod<k>.json`` (hash and every penalty), with P = 1, 2 and 4
+    (at most ``count``) ``--distributed`` processes each on its own card
+    (``MSA_TPU_TORCH_LOCAL_DEVICES=1``), then 4 processes all on cuda:0
+    (``CUDA_VISIBLE_DEVICES=0``: a quarter of the card's budget each), then
+    one process over every card (device threads). Each process runs traced
+    (``traced_cli``); a card outside a process's own, in its shard log line
+    or among its launches, fails the phase; 4 processes on cuda:0 must keep
+    their peaks' sum under the card's memory."""
+    import torch
+
+    from msa_tpu_torch.goldens import pod
+    from msa_tpu_torch.parallel.mesh import card_rule
+
+    golden = pod.load(k)
+    problem = pod.problem_of(golden)
+    total = torch.cuda.mem_get_info(0)[1]
+    runs = [(f"P{p}", p, {"MSA_TPU_TORCH_LOCAL_DEVICES": "1"}) for p in (1, 2, 4) if p <= count]
+    runs += [("P4_on_cuda0", 4, {"CUDA_VISIBLE_DEVICES": "0"}), (f"one_process_{count}_cards", 0, {})]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_input(problem, tmp, f"pod{k}")
+        cards_calibrate(tmp)
+        for label, nproc, extra in runs:
+            env = dict(os.environ, MSA_TPU_TORCH_LOG="INFO", XDG_CACHE_HOME=tmp, **extra)
+            commands, paths = traced_processes(nproc, ["--backend", "cuda", "--input", path], tmp, label)
+            outs, wall = run_processes(commands, env, timeout=1500)
+            lines = outs[0][0].split("\n")
+            pod_check(f"cards_pod{k} {label}", golden, lines[1], [int(v) for v in lines[2].split()])
+            traced = []
+            for p in paths:
+                with open(p) as f:
+                    traced.append(json.load(f))
+            logs = shard_logs(outs) if nproc > 1 else [None] * len(traced)
+            visible = 1 if "CUDA_VISIBLE_DEVICES" in extra else count
+            cap = int(extra.get("MSA_TPU_TORCH_LOCAL_DEVICES", 0))
+            per_process, peaks = [], {}
+            for pid, (rec, sh) in enumerate(zip(traced, logs)):
+                own = {f"cuda:{c}" for c in card_rule(pid, max(nproc, 1), visible)[: cap or None]}
+                named = set(sh["cards"]) if sh else set()
+                if named - own or set(rec["cards"]) - own or not rec["cards"]:
+                    raise AssertionError(f"cards_pod{k} {label}: process {pid} ran on"
+                                         f" {sorted(named | set(rec['cards']))}, its own are {sorted(own)}")
+                for card, times in rec["cards"].items():
+                    peaks[card] = peaks.get(card, 0) + times["peak_device_bytes"]
+                per_process.append({"pairs": sh["pairs"] if sh else golden["pairs"],
+                                    "shard_log_cards": sh and sh["cards"],
+                                    "processes_on_card": sh and sh["processes_on_card"],
+                                    "device_budget": sh and sh["device_budget"], **rec})
+            if max(peaks.values()) >= total:
+                raise AssertionError(f"cards_pod{k} {label}: peaks {peaks} over the card's {total}")
+            phase(f"cards_pod{k}", run=label, processes=max(nproc, 1), golden=True,
+                  time_line=lines[0], wall_seconds=wall, cpu_count=os.cpu_count(),
+                  card_total_bytes=total, peak_bytes_summed_by_card=peaks,
+                  per_process=per_process, env=extra, card=smi)
+
+
+def cards_scaling(smi, count):
+    """``scripts/scaling_curve.py`` over 1, 2 and 4 cards (at most
+    ``count``): section (a) in this process, (c) on pod64 in a fresh
+    process per count, gated on its golden; and (b)."""
+    from msa_tpu_torch.scripts import scaling_curve
+
+    counts = [d for d in (1, 2, 4) if d <= count]
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, lines = run_script(scaling_curve.main, [
+            "--devices", str(count), "--e2e-devices", ",".join(map(str, counts)),
+            "--out", os.path.join(tmp, "scaling.jsonl")])
+    records = [json.loads(ln) for ln in lines]
+    e2e = [r for r in records if r["metric"] == "e2e_local_devices"]
+    if rc != 0 or [r["devices"] for r in e2e] != counts or not all(r["hash_ok"] for r in e2e):
+        raise AssertionError(f"scaling_curve over cards: rc {rc}: {records}")
+    phase("cards_scaling", records=records, card=smi)
+
+
+def cards_schedule(smi, count):
+    """The true makespan: ``data/xulin_adversarial.dat`` and pod64 through
+    ``count`` ``--distributed`` processes, one card each, under
+    ``schedule_policy`` lpt and calibrated in turns, three times each, every
+    run golden; the makespan is the longest process's ``align_shard``."""
+    import re
+    import statistics
+
+    from msa_tpu_torch.goldens import pod
+    from msa_tpu_torch.scripts.conformance import golden_table, matches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cards_calibrate(tmp)
+        pod64 = pod.load(64)
+        workloads = {"data/xulin_adversarial.dat": golden_table()["data/xulin_adversarial.dat"],
+                     write_input(pod.problem_of(pod64), tmp, "pod64"): pod64}
+        for dataset, golden in workloads.items():
+            name = "pod64" if dataset.endswith("pod64.dat") else dataset
+            makespans = {"lpt": [], "calibrated": []}
+            for rep, policy in enumerate(["lpt", "calibrated"] * 3):
+                env = dict(os.environ, MSA_TPU_TORCH_LOG="INFO", XDG_CACHE_HOME=tmp,
+                           MSA_TPU_TORCH_SCHEDULE_POLICY=policy)
+                outs, wall = run_processes(
+                    cli_processes(count, ["--backend", "cuda", "--input", dataset]), env, timeout=900)
+                lines = outs[0][0].split("\n")
+                if not matches(golden, lines[1], [int(v) for v in lines[2].split()]):
+                    raise AssertionError(f"cards_schedule {name} {policy}: not golden")
+                logs = shard_logs(outs)
+                if {sh["policy"] for sh in logs} != {policy}:
+                    raise AssertionError(f"cards_schedule {name}: ran {logs[0]['policy']}, not {policy}")
+                shard_ms = [float(re.search(r"^align_shard: ([\d.]+) ms", err, re.M).group(1))
+                            for _, err in outs]
+                makespans[policy].append(max(shard_ms))
+                phase("cards_schedule", dataset=name, policy=policy, rep=rep // 2, golden=True,
+                      time_us=int(lines[0].split()[1]), wall_seconds=wall, makespan_ms=max(shard_ms),
+                      shard_ms=shard_ms, shard_pairs=[sh["pairs"] for sh in logs],
+                      cards=[sh["cards"] for sh in logs], card=smi)
+            medians = {p: statistics.median(v) for p, v in makespans.items()}
+            phase("cards_schedule_summary", dataset=name, processes=count, makespans_ms=makespans,
+                  median_ms=medians, shorter=min(medians, key=medians.get), card=smi)
+
+
 def cards_main() -> int:
     """``--cards``: a lone pair's striped fill across distinct cards (see the
     module docstring)."""
@@ -1404,6 +1811,8 @@ def cards_main() -> int:
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("chip_smoke --cards: needs two CUDA devices or more", file=sys.stderr)
         return 1
+    import gc
+
     import numpy as np
 
     from msa_tpu_torch.config import TorchConfig
@@ -1481,6 +1890,15 @@ def cards_main() -> int:
                   fill_host_ms=fill_ms, e2e_host_ms=e2e, bound_ms=bound_ms, bound_by=bound_by,
                   peak_device_bytes=[torch.cuda.max_memory_allocated(d) for d in cards],
                   card=smi[0])
+
+    # 4. pair distribution over processes and cards, with the memory this
+    # process's allocator caches handed back first
+    del pair_tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards_pod(smi[0], count)
+    cards_scaling(smi[0], count)
+    cards_schedule(smi[0], count)
     print(json.dumps({"ok": True, "cards": count, "card": smi[0]}), flush=True)
     return 0
 
@@ -1734,7 +2152,13 @@ def main() -> int:
     pod256(smi)
     conformance_first_call(smi)
 
-    # 16. summary
+    # 16. pair distribution on one card and the harness scripts
+    schedule_compare_phase(smi)
+    distributed_pod64(smi)
+    sweep_phases(smi)
+    scaling_one_card(smi)
+
+    # 17. summary
     sources = {
         "band_fill": ("msa_tpu_torch/csrc/band_fill.cu", "msa_tpu/ops/pallas_nw.py:79"),
         "walk": ("msa_tpu_torch/csrc/walk.cu", "msa_tpu/ops/pallas_walk.py:80"),
@@ -1770,6 +2194,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--cards"]:
         raise SystemExit(cards_main())
+    if sys.argv[1:2] == ["--traced-cli"] and sys.argv[3:4] == ["--"]:
+        raise SystemExit(traced_cli(sys.argv[2], sys.argv[4:]))
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--cards]")
     raise SystemExit(main())

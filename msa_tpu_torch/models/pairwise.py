@@ -43,8 +43,12 @@ def pipeline_device(backend: str, config: TorchConfig) -> Optional[torch.device]
     """The torch device pairs run on, or None for host-only backends.
 
     For ``torch`` that is the sweep's device; for the others the device
-    pipeline's. Raises without a card unless ``config.device`` names one.
+    pipeline's: ``config.device`` when it names one, else the process's
+    first card (``parallel/mesh.py::local_devices``). Raises without a card
+    unless ``config.device`` names a device.
     """
+    from msa_tpu_torch.parallel.mesh import local_devices
+
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend in ("numpy", "native"):
@@ -52,19 +56,15 @@ def pipeline_device(backend: str, config: TorchConfig) -> Optional[torch.device]
     if backend == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("backend 'cuda' needs a CUDA device; none is available")
-        dev = torch.device(config.device or "cuda")
-        if dev.type != "cuda":
-            raise ValueError(f"backend 'cuda' cannot run on device {dev}")
-        return dev
-    if config.device:
-        return torch.device(config.device)
-    if torch.cuda.is_available():
-        return torch.device("cuda")
-    raise RuntimeError(
-        f"backend {backend!r} runs on a CUDA device and none is available; to run on"
-        " the CPU, ask for it: --platform cpu, MSA_TPU_TORCH_DEVICE=cpu, or a host"
-        " backend (--backend numpy or native)"
-    )
+        if config.device and torch.device(config.device).type != "cuda":
+            raise ValueError(f"backend 'cuda' cannot run on device {config.device}")
+    elif not config.device and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"backend {backend!r} runs on a CUDA device and none is available; to run on"
+            " the CPU, ask for it: --platform cpu, MSA_TPU_TORCH_DEVICE=cpu, or a host"
+            " backend (--backend numpy or native)"
+        )
+    return local_devices(config)[0]
 
 
 def align_host(x: str, y: str, pxy: int, pgap: int, backend: str) -> Tuple[int, str, str]:

@@ -207,21 +207,29 @@ def to_card(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def device_budget(device: torch.device, hbm_budget: int = 0) -> int:
-    """Device bytes the buffers of a pipeline's fill and walk may take.
+    """Device bytes the buffers of this process's fill and walk may take.
 
     Both device pipelines split their work under it (``ops/batch.py`` in
-    waves, ``ops/conveyor.py`` in halves). ``hbm_budget`` when set; on a card
-    75 % of what can still be allocated, read anew at each call: the free
-    memory plus what PyTorch's allocator holds unused (the JAX package kept
-    25 % headroom for feeds and walk buffers); else 12 GiB, the JAX package's
-    figure for a device that reports nothing.
+    waves, ``ops/conveyor.py`` in halves). ``hbm_budget`` when set: it is
+    already one process's. On a card, 75 % of the card's total memory over
+    the processes that ``parallel/mesh.py`` binds to it, less what this
+    process's tensors hold, and never more than 75 % of what the process
+    can still allocate (the free memory plus what PyTorch's allocator holds
+    unused), read anew at each call. So what one card's processes hold and
+    may take adds up to at most 75 % of it, whatever order they read in;
+    the free memory already leaves out what the others hold, so it is not
+    divided again. The JAX package kept 25 % headroom for feeds and walk
+    buffers; else 12 GiB, its figure for a device that reports nothing.
     """
+    from msa_tpu_torch.parallel.mesh import processes_on
+
     if hbm_budget:
         return hbm_budget
     if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-        return int(free * 0.75)
+        free, total = torch.cuda.mem_get_info(device)
+        held = torch.cuda.memory_allocated(device)
+        free += torch.cuda.memory_reserved(device) - held
+        return max(0, int(min(0.75 * total / processes_on(device) - held, 0.75 * free)))
     return 12 << 30
 
 

@@ -18,6 +18,8 @@ many: NCCL is not needed.
 from __future__ import annotations
 
 import json
+import os
+import socket
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,7 +69,9 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Join the process group of a multi-process run (gloo).
+    """Join the process group of a multi-process run (gloo), and learn this
+    process's place on its host (``mesh.set_host_place``), which decides its
+    cards.
 
     With ``coordinator`` ("HOST:PORT"; process 0 listens there),
     ``num_processes`` and ``process_id``; with none of them, from the
@@ -77,15 +81,32 @@ def init_distributed(
     given = [v is not None for v in (coordinator, num_processes, process_id)]
     if not any(given):
         dist.init_process_group("gloo", init_method="env://")
-        return
-    if not all(given):
-        raise ValueError("coordinator, num_processes and process_id go together")
-    host, _, port = coordinator.rpartition(":")
-    if not host or not port.isdigit():
-        raise ValueError(f"coordinator {coordinator!r} is not HOST:PORT")
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator}", world_size=num_processes, rank=process_id,
-    )
+    else:
+        if not all(given):
+            raise ValueError("coordinator, num_processes and process_id go together")
+        host, _, port = coordinator.rpartition(":")
+        if not host or not port.isdigit():
+            raise ValueError(f"coordinator {coordinator!r} is not HOST:PORT")
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator}", world_size=num_processes,
+            rank=process_id,
+        )
+    mesh.set_host_place(*local_place())
+
+
+def local_place() -> Tuple[int, int]:
+    """(local rank, processes on this host) in the process group.
+
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` when set (``torchrun`` sets
+    them); else every process's host name, gathered once over gloo, so it
+    touches no card: the processes on this host, in rank order.
+    """
+    if "LOCAL_RANK" in os.environ and "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_RANK"]), int(os.environ["LOCAL_WORLD_SIZE"])
+    names: List[Optional[str]] = [None] * dist.get_world_size()
+    dist.all_gather_object(names, socket.gethostname())
+    mine = [r for r, name in enumerate(names) if name == names[dist.get_rank()]]
+    return mine.index(dist.get_rank()), len(mine)
 
 
 def process_group() -> Tuple[int, int]:
@@ -153,8 +174,12 @@ def align_kway_sharded(
     if nproc == 1:
         return aligner.align_all(genes, keep_alignments=keep_alignments, checkpoint=checkpoint)
 
+    pw = aligner.pairwise
+    if pw.device is not None and pw.device.type == "cuda":
+        # The process's first card is its current one, so that whatever
+        # runs on the current card runs on its own.
+        torch.cuda.set_device(pw.device)
     with timer.stage("schedule"):
-        pw = aligner.pairwise
         policy = config.schedule_policy
         cost_model = None
         if policy == "calibrated":
@@ -166,10 +191,19 @@ def align_kway_sharded(
                 policy = "lpt"  # no calibration: the exact m * n model
         my_tasks = schedule_for(genes, nproc, policy=policy, cost_model=cost_model)[pidx]
 
+    from msa_tpu_torch.ops.band_fill import device_budget
+
+    cards = mesh.local_devices(config) if pw.device is not None else []
+    budget = device_budget(pw.device, config.hbm_budget) if pw.device is not None else 0
     with timer.stage("align_shard"):
         my_results = aligner.align_tasks(genes, my_tasks, checkpoint=checkpoint)
+    local_rank, local_count = mesh.host_place() or (0, 1)
     log.info("shard %s", json.dumps({
-        "process": pidx, "processes": nproc, "policy": policy, "pairs": len(my_tasks),
+        "process": pidx, "processes": nproc, "local_rank": local_rank,
+        "local_processes": local_count, "cards": [str(d) for d in cards],
+        "processes_on_card": [mesh.processes_on(d) for d in cards],
+        "device_budget": budget, "policy": policy, "pairs": len(my_tasks),
+        "device_pairs": sum(pw.on_device(genes[t.i], genes[t.j]) for t in my_tasks),
         "total_pairs": problem.num_pairs, "launches": _launches(),
     }))
 

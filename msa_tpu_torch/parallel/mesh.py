@@ -4,23 +4,82 @@ Counterpart of ``msa_tpu/parallel/mesh.py::get_mesh`` and
 ``jax.local_devices()``: the devices one process shards its device pairs
 over (``models/kway.py``), its score-only fills (``parallel/engine.py``)
 and a lone pair's stripes (``ops/nw_striped.py``), only ever its own.
+
+In a process group the processes of one host split its cards by
+``card_rule``: process ``local_rank`` of ``local_count`` takes cards
+``local_rank``, ``local_rank + local_count``, ... when there are at least
+as many cards as processes, else card ``local_rank % cards``, which it
+shares. ``parallel/engine.py::init_distributed`` learns the process's place
+on its host (``set_host_place``) before any card is touched.
 """
 
 from __future__ import annotations
 
 import contextlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from msa_tpu_torch.config import TorchConfig
 
+# (local rank, processes on the host) of this process in its process group.
+_host_place: Optional[Tuple[int, int]] = None
+
+
+def set_host_place(local_rank: int, local_count: int) -> None:
+    """Record this process's place among the processes of its host."""
+    global _host_place
+    if not 0 <= local_rank < local_count:
+        raise ValueError(f"local rank {local_rank} is not one of {local_count} processes")
+    _host_place = (local_rank, local_count)
+
+
+def host_place() -> Optional[Tuple[int, int]]:
+    """(local rank, processes on the host) in a process group, else None."""
+    if _host_place is None or not (dist.is_available() and dist.is_initialized()):
+        return None
+    return _host_place
+
+
+def card_rule(local_rank: int, local_count: int, cards: int) -> List[int]:
+    """The card indices of process ``local_rank`` of the ``local_count``
+    processes of a host with ``cards`` cards: every ``local_count``-th card
+    from ``local_rank`` when ``local_count <= cards``, else the one card
+    ``local_rank % cards``."""
+    if cards < 1:
+        raise ValueError("a host without cards has no card to give")
+    if local_count <= cards:
+        return list(range(local_rank, cards, local_count))
+    return [local_rank % cards]
+
+
+def card_sharers(card: int, local_count: int, cards: int) -> int:
+    """How many of a host's ``local_count`` processes ``card_rule`` binds to
+    ``card``."""
+    if local_count <= cards:
+        return 1
+    return local_count // cards + (card < local_count % cards)
+
+
+def processes_on(device: torch.device) -> int:
+    """The processes of this host that share ``device`` (1 outside a process
+    group and off the card). A card that ``config.device`` names is counted
+    as ``card_rule`` counts it."""
+    place = host_place()
+    if place is None or device.type != "cuda":
+        return 1
+    cards = torch.cuda.device_count()
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return card_sharers(index, place[1], cards)
+
 
 def local_devices(config: TorchConfig) -> List[torch.device]:
-    """``cuda:0 .. count - 1``, at most ``config.local_devices`` of them (0: all).
+    """The process's cards, at most ``config.local_devices`` of them (0: all).
 
-    ``[cpu]`` when ``config.device`` is "cpu"; the one device
+    Every card of the host outside a process group, else its cards by
+    ``card_rule``. ``[cpu]`` when ``config.device`` is "cpu"; the one device
     ``config.device`` names when it names an indexed card. "cuda" with no
     card gives no device, never the CPU; with ``config.device`` unset and no
     card it raises: the CPU runs only when the caller asks for it.
@@ -35,7 +94,9 @@ def local_devices(config: TorchConfig) -> List[torch.device]:
             " --platform cpu or MSA_TPU_TORCH_DEVICE=cpu"
         )
     count = torch.cuda.device_count()
-    return [torch.device("cuda", i) for i in range(min(count, config.local_devices or count))]
+    place = host_place()
+    ids = list(range(count)) if place is None or not count else card_rule(*place, count)
+    return [torch.device("cuda", i) for i in ids[: config.local_devices or len(ids)]]
 
 
 @contextlib.contextmanager
