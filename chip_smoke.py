@@ -47,7 +47,10 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    fill-mode A/B (banded, conveyor, conveyor, banded, banded, conveyor);
    big13 under ``fill_mode=auto``, golden, through the fill it chooses;
    each kernel's big13 time beside its bound, share of bound and its
-   launches under ``auto`` (the conveyor's run's launches apart);
+   launches under ``auto`` (the conveyor's run's launches apart); then
+   ``bench``: ``scripts/bench.py`` as a user runs it (big13, two warm-ups
+   and five reps, each golden in full), its record, the card it names and
+   the kernels it launched;
 7. ``score_only_vs_plain``: the fill kernel with snapshots off on the
    phase-2 inputs, scores and rows equal to ``band_fill_ref`` with snapshots
    off and scores equal to the full fill's;
@@ -1571,6 +1574,27 @@ def run_script(main, argv):
     return rc, buf.getvalue().strip().splitlines()
 
 
+def bench_phase(counted, smi):
+    """``scripts/bench.py``, the port's benchmark, as a user runs it: big13
+    on the card under the environment's config, 2 warm-ups and 5 reps, each
+    gated on the full hash and every penalty; the record must name this
+    card, and the main path's kernels must have launched."""
+    from msa_tpu_torch.scripts import bench
+
+    for fn in counted.values():
+        fn.launches = fn.pairs = 0
+    rc, lines = run_script(bench.main, [])
+    launches = {name: fn.launches for name, fn in counted.items()}
+    record = json.loads(lines[-1])
+    if rc != 0 or len(record.get("reps", [])) != 5 or not record["value"] > 0:
+        raise AssertionError(f"bench: exit code {rc}, {record}")
+    if record["card"] != smi:
+        raise AssertionError(f"bench names the card {record['card']!r}, not {smi!r}")
+    if launches["band_fill"] < 1 or launches["walk"] < 1:
+        raise AssertionError(f"bench did not run the main path's kernels: {launches}")
+    phase("bench", **record, launches=launches)
+
+
 def sweep_phases(smi):
     """``scripts/sweep.py``: the band ladder (90,000 x 85,000, rb 1023 to
     8191, every score equal to the one-launch score at rb 8191), then the
@@ -2131,6 +2155,7 @@ def main() -> int:
         "ms": conv_walk_ms, "bound_ms": conv_walk_bound[0], "bound_by": conv_walk_bound[1],
         "share_of_bound": conv_walk_bound[0] / conv_walk_ms,
         "conveyor_launches": conv_launches["walk"]})
+    bench_phase(all_kernels, smi)
 
     # 7-13. this slice: score-only fill, sharded scores, calibration, the
     # device split, two processes, the profiler, the torch backend

@@ -23,6 +23,27 @@ The port imports torch and never jax, and nothing of the JAX package: it
 keeps its own copies of the host code it shares with it (``utils``,
 ``ops/reference.py``, ``native``). Its entry points run on a card unless the
 caller asks for the CPU.
+
+The top-level names are those of ``msa_tpu``: ``parse_input``,
+``format_output``, ``KWayAligner`` and ``align_kway``. They load at first
+use, so ``import msa_tpu_torch`` alone imports no torch (the host-only
+modules, ``goldens`` and ``scripts/gen_workload.py``, rely on it).
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_EXPORTS = {
+    "parse_input": "msa_tpu_torch.utils.msaio",
+    "format_output": "msa_tpu_torch.utils.msaio",
+    "KWayAligner": "msa_tpu_torch.models.kway",
+    "align_kway": "msa_tpu_torch.models.kway",
+}
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

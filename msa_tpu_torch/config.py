@@ -31,8 +31,14 @@ class TorchConfig:
     # Snapshot stride of the fill == segment length of the walk (one knob,
     # as in msa_tpu.config.snap_k).
     snap_k: int = 1024
-    # Pairs with fewer DP cells than this take the native host kernel
-    # (msa_tpu/models/pairwise.py:83); the rest take the device pipeline.
+    # Pairs with fewer DP cells than this take the native host kernel, one
+    # after another once the device pairs are back; the rest take the device
+    # pipeline. Measured on an H100 ("NVIDIA H100 80GB HBM3, 700.00 W";
+    # scripts/ab_compare.py, 5 alternating reps, PERF.md): 2^16 and 2^18
+    # tie within the reps' spread on xulin_adversarial.dat, xulin_test.txt
+    # and 1,128 generated pairs of 200-4,000 characters; 2^20 is slower on
+    # the first (median 171 against 157 ms) and 2^22 on the first and the
+    # last (194 against 157 ms, 1.83 against 1.17 s).
     host_threshold: int = 1 << 18
     # Torch device of the pipeline: "" picks "cuda" when a card is present.
     # "cpu" runs the pipeline through the kernels' plain versions.

@@ -160,7 +160,7 @@ def test_port_imports_no_jax():
         REPO / "chip_smoke.py", REPO / "fill_ablation.py", REPO / "walk_ablation.py"]
     assert len(files) > 8
     assert {REPO / "msa_tpu_torch" / "scripts" / f"{name}.py" for name in (
-        "conformance", "schedule_compare", "scaling_curve", "sweep", "plot_bench")} | {
+        "conformance", "schedule_compare", "scaling_curve", "sweep", "plot_bench", "bench")} | {
             REPO / "msa_tpu_torch" / "goldens" / "pod.py"} <= set(files)
     for path in files:
         for name in _imports(path):
@@ -181,7 +181,8 @@ def test_port_modules_leave_jax_unimported():
             "msa_tpu_torch/goldens/pod.py", "msa_tpu_torch/scripts/gen_workload.py",
             "msa_tpu_torch/scripts/ab_compare.py", "msa_tpu_torch/scripts/conformance.py",
             "msa_tpu_torch/scripts/schedule_compare.py", "msa_tpu_torch/scripts/scaling_curve.py",
-            "msa_tpu_torch/scripts/sweep.py", "msa_tpu_torch/scripts/plot_bench.py"} <= rel
+            "msa_tpu_torch/scripts/sweep.py", "msa_tpu_torch/scripts/plot_bench.py",
+            "msa_tpu_torch/scripts/bench.py"} <= rel
     modules = [
         ".".join(p.relative_to(REPO).with_suffix("").parts[:-1] if p.name == "__init__.py"
                  else p.relative_to(REPO).with_suffix("").parts)
