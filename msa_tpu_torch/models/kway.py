@@ -15,11 +15,13 @@ import dataclasses
 import threading
 from typing import List, Optional, Sequence
 
+from msa_tpu_torch.utils import timing
 from msa_tpu_torch.utils.hashing import chain_hashes, pair_hash
 from msa_tpu_torch.utils.msaio import Problem
 from msa_tpu_torch.utils.tasks import pair_task_list
 from msa_tpu_torch.config import TorchConfig
 from msa_tpu_torch.models.pairwise import PairResult, PairwiseAligner
+from msa_tpu_torch.utils.timing import Span, running, span
 
 FILL_MODES = ("auto", "banded", "conveyor")
 
@@ -61,51 +63,58 @@ class KWayAligner:
         self.pairwise = PairwiseAligner(pxy, pgap, backend=backend, config=config)
 
     def align_tasks(
-        self, genes: Sequence[str], tasks: Sequence, checkpoint: Optional[str] = None
+        self, genes: Sequence[str], tasks: Sequence, checkpoint: Optional[str] = None,
+        job: Optional[Span] = None,
     ) -> List[PairResult]:
-        """Align a task subset; results in the given task order."""
+        """Align a task subset; results in the given task order. ``job``
+        is the traced job's span the stages go under, None when untraced."""
         pw = self.pairwise
         results: dict = {}
         journal = None
-        if checkpoint:
-            from msa_tpu_torch.utils.checkpoint import PairJournal, problem_key
-
-            journal = PairJournal(checkpoint, problem_key(pw.pxy, pw.pgap, genes))
-            done = journal.load()
-            for t in tasks:
-                if t.task_id in done:
-                    penalty, h = done[t.task_id]
-                    results[t.task_id] = PairResult(t.task_id, penalty, "", "", h)
         on_result = None
-        if journal is not None:
-            # Each pair is journaled as its walk decodes, so a crash keeps
-            # every finished pair. Device and decode threads call in at once.
-            lock = threading.Lock()
+        with span(job, "kway.setup"):
+            if checkpoint:
+                from msa_tpu_torch.utils.checkpoint import PairJournal, problem_key
 
-            def on_result(t, triple):
-                penalty, a1, a2 = triple
-                with lock:
-                    journal.record(t.task_id, penalty, pair_hash(a1, a2))
+                journal = PairJournal(checkpoint, problem_key(pw.pxy, pw.pgap, genes))
+                done = journal.load()
+                for t in tasks:
+                    if t.task_id in done:
+                        penalty, h = done[t.task_id]
+                        results[t.task_id] = PairResult(t.task_id, penalty, "", "", h)
+            if journal is not None:
+                # Each pair is journaled as its walk decodes, so a crash keeps
+                # every finished pair. Device and decode threads call in at once.
+                lock = threading.Lock()
 
-        try:
+                def on_result(t, triple):
+                    penalty, a1, a2 = triple
+                    with lock:
+                        journal.record(t.task_id, penalty, pair_hash(a1, a2))
+
             remaining = [t for t in tasks if t.task_id not in results]
             device_tasks = [t for t in remaining if pw.on_device(genes[t.i], genes[t.j])]
+        try:
             if device_tasks:
-                triples = self._run_batched(genes, device_tasks, on_result)
-                for t, (penalty, a1, a2) in zip(device_tasks, triples):
-                    results[t.task_id] = PairResult(t.task_id, penalty, a1, a2, pair_hash(a1, a2))
-            for t in tasks:
-                if t.task_id not in results:
-                    results[t.task_id] = pw.do_task(t.task_id, genes[t.i], genes[t.j])
-                    if journal is not None:
-                        r = results[t.task_id]
-                        journal.record(t.task_id, r.penalty, r.problem_hash)
+                triples = self._run_batched(genes, device_tasks, on_result, job)
+                with span(job, "kway.pair_hash"):
+                    for t, (penalty, a1, a2) in zip(device_tasks, triples):
+                        results[t.task_id] = PairResult(
+                            t.task_id, penalty, a1, a2, pair_hash(a1, a2))
+            with span(job, "kway.host_pairs"):
+                for t in tasks:
+                    if t.task_id not in results:
+                        results[t.task_id] = pw.do_task(t.task_id, genes[t.i], genes[t.j])
+                        if journal is not None:
+                            r = results[t.task_id]
+                            journal.record(t.task_id, r.penalty, r.problem_hash)
+                return [results[t.task_id] for t in tasks]
         finally:
             if journal is not None:
                 journal.close()
-        return [results[t.task_id] for t in tasks]
 
-    def _run_batched(self, genes: Sequence[str], tasks: Sequence, on_task_result=None):
+    def _run_batched(self, genes: Sequence[str], tasks: Sequence, on_task_result=None,
+                     job: Optional[Span] = None):
         """(penalty, align1, align2) of each device task, in ``tasks`` order.
 
         Port of ``msa_tpu/models/kway.py:220-287``: the device pairs are
@@ -116,49 +125,68 @@ class KWayAligner:
         ``on_task_result(task, triple)`` fires as each pair decodes, from any
         thread.
         """
-        from msa_tpu_torch.parallel.mesh import local_devices, map_shards
-        from msa_tpu_torch.parallel.schedule import lpt_schedule
-
         pw = self.pairwise
+        with span(job, "kway.setup"):
+            from msa_tpu_torch.parallel.mesh import local_devices, map_shards
+            from msa_tpu_torch.parallel.schedule import lpt_schedule
 
-        def run_on(dev, shard):
+            if choose_fill_mode(pw.config) == "conveyor":
+                from msa_tpu_torch.ops.conveyor import align_pairs_conveyor
+            else:
+                align_pairs_conveyor = None
+                from msa_tpu_torch.ops.batch import align_pairs_batched
+            devs = local_devices(pw.config)  # at most config.local_devices
+            n_used = max(1, min(len(devs), len(tasks) // 2))
+
+        def run_on(dev, shard, parent=job):
             cb = None
             if on_task_result is not None:
                 def cb(idx, triple):
                     on_task_result(shard[idx], triple)
 
             pairs = [(t.i, t.j) for t in shard]
-            if choose_fill_mode(pw.config) == "conveyor":
-                from msa_tpu_torch.ops.conveyor import align_pairs_conveyor
-
+            if align_pairs_conveyor is not None:
                 return align_pairs_conveyor(
                     genes, pairs, pw.pxy, pw.pgap, device=dev, config=pw.config, on_result=cb,
                 )
-            from msa_tpu_torch.ops.batch import align_pairs_batched
+            with running(parent):
+                return align_pairs_batched(
+                    genes, pairs, pw.pxy, pw.pgap, device=dev, rb=pw.config.rb,
+                    snap_k=pw.config.snap_k, on_result=cb, config=pw.config, job=parent,
+                )
 
-            return align_pairs_batched(
-                genes, pairs, pw.pxy, pw.pgap, device=dev, rb=pw.config.rb,
-                snap_k=pw.config.snap_k, on_result=cb, config=pw.config,
-            )
-
-        devs = local_devices(pw.config)  # at most config.local_devices
-        n_used = max(1, min(len(devs), len(tasks) // 2))
         if n_used == 1:
             return run_on(pw.device, tasks)
-        shards = lpt_schedule([(t, len(genes[t.i]) * len(genes[t.j])) for t in tasks], n_used)
-        by_id = map_shards(run_on, devs, shards)
-        return [by_id[t.task_id] for t in tasks]
+        with span(job, "kway.shards") as shards:
+            split = lpt_schedule([(t, len(genes[t.i]) * len(genes[t.j])) for t in tasks], n_used)
+            by_id = map_shards(lambda dev, shard: run_on(dev, shard, shards), devs, split)
+            return [by_id[t.task_id] for t in tasks]
 
     def align_all(
         self, genes: Sequence[str], keep_alignments: bool = False,
-        checkpoint: Optional[str] = None,
+        checkpoint: Optional[str] = None, job=timing.NEW_JOB,
     ) -> KWayResult:
-        results = self.align_tasks(genes, pair_task_list(len(genes)), checkpoint)
-        return KWayResult(
-            chain_hash=chain_hashes(r.problem_hash for r in results),
-            penalties=[r.penalty for r in results],
-            pair_results=results if keep_alignments else None,
-        )
+        """The k-way result of all pairs of ``genes``: a job of its own
+        (``utils/timing.py::job``) unless ``align_kway`` hands in its span."""
+        if job is not timing.NEW_JOB:
+            return self._align_all(genes, keep_alignments, checkpoint, job)
+        with timing.job() as job:
+            return self._align_all(genes, keep_alignments, checkpoint, job)
+
+    def _align_all(self, genes, keep_alignments, checkpoint, job) -> KWayResult:
+        with span(job, "kway.setup"):
+            tasks = pair_task_list(len(genes))
+            if job is not None:
+                total = sum(len(g) for g in genes)
+                cells = (total * total - sum(len(g) ** 2 for g in genes)) // 2
+                job.attrs.update(k=len(genes), pairs=len(tasks), cells=cells)
+        results = self.align_tasks(genes, tasks, checkpoint, job)
+        with span(job, "kway.chain"):
+            return KWayResult(
+                chain_hash=chain_hashes(r.problem_hash for r in results),
+                penalties=[r.penalty for r in results],
+                pair_results=results if keep_alignments else None,
+            )
 
 
 def align_kway(
@@ -168,8 +196,11 @@ def align_kway(
     checkpoint: Optional[str] = None,
     config: Optional[TorchConfig] = None,
 ) -> KWayResult:
-    """One-shot driver: Problem -> (chain hash, penalties)."""
-    engine = KWayAligner(problem.pxy, problem.pgap, backend=backend, config=config)
-    return engine.align_all(
-        problem.genes, keep_alignments=keep_alignments, checkpoint=checkpoint
-    )
+    """One-shot entry: Problem -> (chain hash, penalties). The job, aligner
+    construction included, is traced while a ``torch.profiler`` records."""
+    with timing.job() as job:
+        with span(job, "kway.setup"):
+            engine = KWayAligner(problem.pxy, problem.pgap, backend=backend, config=config)
+        return engine.align_all(
+            problem.genes, keep_alignments=keep_alignments, checkpoint=checkpoint, job=job
+        )

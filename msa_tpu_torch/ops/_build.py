@@ -22,6 +22,8 @@ import subprocess
 import threading
 from typing import Dict, List
 
+from msa_tpu_torch.utils import timing
+
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
@@ -132,10 +134,13 @@ def check(name: str, err: int) -> None:
 
 
 def count(fn, pairs: int) -> None:
-    """Count one launch of ``fn``'s kernel over ``pairs`` pairs.
+    """Count one launch of ``fn``'s kernel over ``pairs`` pairs, and in a
+    traced job the job's ``walk_launches`` or ``fill_launches`` and ``pairs``
+    (``utils/timing.py::count_launch``).
 
     Device threads launch at once, so the counters are updated under a lock.
     """
     with _COUNT_LOCK:
         fn.launches += 1
         fn.pairs += pairs
+    timing.count_launch("walk" if fn.__name__ == "walk" else "fill", pairs)

@@ -45,6 +45,7 @@ from msa_tpu_torch.ops.band_fill import (
     plan_pairs,
 )
 from msa_tpu_torch.ops.walk import banded_walk_plan, pair_moves, walk
+from msa_tpu_torch.utils.timing import Span, span
 
 
 # However large the budget, a wave takes at most 1 / HALVES of the device
@@ -75,6 +76,7 @@ def align_pairs_batched(
     snap_k: int,
     on_result: Optional[Callable[[int, Tuple[int, str, str]], None]] = None,
     config: Optional[TorchConfig] = None,
+    job: Optional[Span] = None,
 ) -> List[Tuple[int, str, str]]:
     """(penalty, align1, align2) for each (x gene, y gene) pair, in order.
 
@@ -82,15 +84,12 @@ def align_pairs_batched(
     threads (``decode_workers``). ``on_result(idx, triple)`` fires once per
     pair, with the caller's index, from a decode thread as the pair's
     decode finishes. A pair whose bytes exceed half the budget raises
-    ``ValueError`` before any launch.
+    ``ValueError`` before any launch. ``job`` is the traced job's span the
+    pipeline's spans go under (``utils/timing.py``), None when untraced.
     """
     num = len(pairs)
     if not num:
         return []
-    config = config or TorchConfig()
-    lengths = [len(g) for g in genes]
-    order = sorted(range(num), key=lambda idx: -(lengths[pairs[idx][0]] + lengths[pairs[idx][1]]))
-    sizes = pair_bytes(plan_pairs(lengths, [pairs[idx] for idx in order], rb, snap_k)).tolist()
 
     def over(r: int, budget: int) -> ValueError:
         xg, yg = pairs[order[r]]
@@ -100,16 +99,24 @@ def align_pairs_batched(
             f" {budget / 2**30:.2f} GiB budget (two waves are in flight)"
         )
 
-    budget = device_budget(device, config.hbm_budget)
-    biggest = max(range(num), key=sizes.__getitem__)
-    if sizes[biggest] > budget // 2:
-        raise over(biggest, budget)
-    share = -(-sum(sizes) // HALVES) + sizes[biggest]
+    with span(job, "batch.size"):
+        config = config or TorchConfig()
+        lengths = [len(g) for g in genes]
+        order = sorted(range(num),
+                       key=lambda idx: -(lengths[pairs[idx][0]] + lengths[pairs[idx][1]]))
+        sizes = pair_bytes(plan_pairs(lengths, [pairs[idx] for idx in order], rb, snap_k)).tolist()
+        budget = device_budget(device, config.hbm_budget)
+        biggest = max(range(num), key=sizes.__getitem__)
+        if sizes[biggest] > budget // 2:
+            raise over(biggest, budget)
+        share = -(-sum(sizes) // HALVES) + sizes[biggest]
 
-    table = torch.from_numpy(gene_table(genes)).to(device)
-    on_card = device.type == "cuda"
-    fill_stream = torch.cuda.current_stream(device) if on_card else None
-    walk_stream = torch.cuda.Stream(device) if on_card else None
+    with span(job, "batch.gene_table"):
+        table = torch.from_numpy(gene_table(genes)).to(device)
+        on_card = device.type == "cuda"
+        fill_stream = torch.cuda.current_stream(device) if on_card else None
+        walk_stream = torch.cuda.Stream(device) if on_card else None
+        pool = ThreadPoolExecutor(max_workers=max(1, config.decode_workers))
 
     def launch_walk(wave, wplan, fill):
         """The wave's walk (on the second stream on a card) and its fetch."""
@@ -127,57 +134,80 @@ def align_pairs_batched(
         return wave, wplan, fetched, done, fill
 
     def decode(idx, words, counts, wplan, p, score):
-        xg, yg = pairs[idx]
-        a1, a2 = moves_to_alignment(genes[xg], genes[yg], pair_moves(words, counts, wplan, p))
-        triple = (int(score), a1, a2)
-        if on_result is not None:
-            on_result(idx, triple)
+        # On a decode thread: the profiler does not record here, so the
+        # span hangs from the job's span, handed in.
+        with span(job, "batch.decode") as sp:
+            xg, yg = pairs[idx]
+            a1, a2 = moves_to_alignment(genes[xg], genes[yg], pair_moves(words, counts, wplan, p))
+            triple = (int(score), a1, a2)
+            if on_result is not None:
+                on_result(idx, triple)
+            if sp is not None:
+                sp.attrs["chars"] = len(a1) + len(a2)
+                sp.count("decode_chars", len(a1) + len(a2))
         return triple
 
     out: List[Tuple[int, str, str]] = [None] * num  # type: ignore
     futures = []
-    with ThreadPoolExecutor(max_workers=max(1, config.decode_workers)) as pool:
+    with pool:
 
         def collect(launched):
             wave, wplan, fetched, done, _ = launched
-            if done is not None:
-                done.synchronize()  # this wave's walk and fetch only
-            words, counts, scores = (t.numpy() for t in fetched)
-            for p, r in enumerate(wave):
-                idx = order[r]
-                futures.append((idx, pool.submit(decode, idx, words, counts, wplan, p, scores[p])))
+            with span(job, "batch.fetch_wait"):
+                if done is not None:
+                    done.synchronize()  # this wave's walk and fetch only
+            with span(job, "batch.submit"):
+                words, counts, scores = (t.numpy() for t in fetched)
+                for p, r in enumerate(wave):
+                    idx = order[r]
+                    futures.append(
+                        (idx, pool.submit(decode, idx, words, counts, wplan, p, scores[p])))
 
-        def wave_end(start):
-            cap = min(device_budget(device, config.hbm_budget) // 2, share)
-            end, total = start, 0
-            while end < num and total + sizes[end] <= cap:
-                total += sizes[end]
-                end += 1
-            return end
+        def next_wave(start):
+            """(end, plan) of the wave from ``start``: as many pairs as fit
+            the budget read now; no plan when none fits."""
+            with span(job, "batch.plan"):
+                cap = min(device_budget(device, config.hbm_budget) // 2, share)
+                end, total = start, 0
+                while end < num and total + sizes[end] <= cap:
+                    total += sizes[end]
+                    end += 1
+                if end == start:
+                    return end, None
+                return end, plan_pairs(lengths, [pairs[order[r]] for r in range(start, end)],
+                                       rb, snap_k)
 
         pending = None
         start = 0
         while start < num:
-            end = wave_end(start)
+            end, plan = next_wave(start)
             if end == start and pending is not None:
                 # The next pair does not fit beside the wave in flight:
                 # finish that wave and read the budget again.
                 collect(pending)
                 pending = None
-                end = wave_end(start)
+                end, plan = next_wave(start)
             if end == start:
                 raise over(start, device_budget(device, config.hbm_budget))
             wave = list(range(start, end))
-            plan = plan_pairs(lengths, [pairs[order[r]] for r in wave], rb, snap_k)
-            fill = band_fill(table, plan, pxy, pgap)
+            with span(job, "batch.fill_enqueue") as sp:
+                fill = band_fill(table, plan, pxy, pgap)
+                if sp is not None:
+                    cells = int((plan.params[:, P_M] * plan.params[:, P_N]).sum())
+                    sp.attrs.update(pairs=len(wave), cells=cells, bytes=sum(sizes[start:end]))
             # The previous wave walks beside this fill; its pairs go to the
             # decoders before the next walk is launched.
             if pending is not None:
                 collect(pending)
-            pending = launch_walk(wave, banded_walk_plan(plan), fill)
+            with span(job, "batch.walk_enqueue"):
+                pending = launch_walk(wave, banded_walk_plan(plan), fill)
             start = end
         if pending is not None:
             collect(pending)
-        for idx, fut in futures:
-            out[idx] = fut.result()
+        with span(job, "batch.drain"):
+            for idx, fut in futures:
+                out[idx] = fut.result()
+            pool.shutdown()
+            # The last wave's buffers go back to the allocator here, not on return.
+            pending = fill = table = None
     return out

@@ -33,6 +33,7 @@ from msa_tpu_torch.models.kway import KWayAligner, KWayResult
 from msa_tpu_torch.parallel import mesh
 from msa_tpu_torch.parallel.schedule import lpt_schedule, pair_costs, schedule_for
 from msa_tpu_torch.utils.logging import get_logger
+from msa_tpu_torch.utils import timing
 from msa_tpu_torch.utils.timing import StageTimer
 
 
@@ -167,67 +168,69 @@ def align_kway_sharded(
     genes = problem.genes
     pidx, nproc = process_group()
     log = get_logger("msa_tpu_torch.engine")
-    timer = StageTimer()
     if checkpoint:
         checkpoint = checkpoint.replace("{proc}", str(pidx))
     aligner = KWayAligner(problem.pxy, problem.pgap, backend=backend, config=config)
     if nproc == 1:
         return aligner.align_all(genes, keep_alignments=keep_alignments, checkpoint=checkpoint)
 
-    pw = aligner.pairwise
-    if pw.device is not None and pw.device.type == "cuda":
-        # The process's first card is its current one, so that whatever
-        # runs on the current card runs on its own.
-        torch.cuda.set_device(pw.device)
-    with timer.stage("schedule"):
-        policy = config.schedule_policy
-        cost_model = None
-        if policy == "calibrated":
-            # The model times the device pipeline's fill, so only a run that
-            # has one on a card calibrates.
-            probe = pw.device if pw.backend in ("cuda", "auto") else None
-            cost_model = _broadcast_calibration(log, probe)
-            if cost_model is None:
-                policy = "lpt"  # no calibration: the exact m * n model
-        my_tasks = schedule_for(genes, nproc, policy=policy, cost_model=cost_model)[pidx]
+    # One job across the stages: traced while a torch.profiler records.
+    with timing.job() as job:
+        timer = StageTimer(job)
+        pw = aligner.pairwise
+        if pw.device is not None and pw.device.type == "cuda":
+            # The process's first card is its current one, so that whatever
+            # runs on the current card runs on its own.
+            torch.cuda.set_device(pw.device)
+        with timer.stage("schedule"):
+            policy = config.schedule_policy
+            cost_model = None
+            if policy == "calibrated":
+                # The model times the device pipeline's fill, so only a run that
+                # has one on a card calibrates.
+                probe = pw.device if pw.backend in ("cuda", "auto") else None
+                cost_model = _broadcast_calibration(log, probe)
+                if cost_model is None:
+                    policy = "lpt"  # no calibration: the exact m * n model
+            my_tasks = schedule_for(genes, nproc, policy=policy, cost_model=cost_model)[pidx]
 
-    from msa_tpu_torch.ops.band_fill import device_budget
+        from msa_tpu_torch.ops.band_fill import device_budget
 
-    cards = mesh.local_devices(config) if pw.device is not None else []
-    budget = device_budget(pw.device, config.hbm_budget) if pw.device is not None else 0
-    with timer.stage("align_shard"):
-        my_results = aligner.align_tasks(genes, my_tasks, checkpoint=checkpoint)
-    local_rank, local_count = mesh.host_place() or (0, 1)
-    log.info("shard %s", json.dumps({
-        "process": pidx, "processes": nproc, "local_rank": local_rank,
-        "local_processes": local_count, "cards": [str(d) for d in cards],
-        "processes_on_card": [mesh.processes_on(d) for d in cards],
-        "device_budget": budget, "policy": policy, "pairs": len(my_tasks),
-        "device_pairs": sum(pw.on_device(genes[t.i], genes[t.j]) for t in my_tasks),
-        "total_pairs": problem.num_pairs, "launches": _launches(),
-    }))
+        cards = mesh.local_devices(config) if pw.device is not None else []
+        budget = device_budget(pw.device, config.hbm_budget) if pw.device is not None else 0
+        with timer.stage("align_shard") as shard:
+            my_results = aligner.align_tasks(genes, my_tasks, checkpoint=checkpoint, job=shard)
+        local_rank, local_count = mesh.host_place() or (0, 1)
+        log.info("shard %s", json.dumps({
+            "process": pidx, "processes": nproc, "local_rank": local_rank,
+            "local_processes": local_count, "cards": [str(d) for d in cards],
+            "processes_on_card": [mesh.processes_on(d) for d in cards],
+            "device_budget": budget, "policy": policy, "pairs": len(my_tasks),
+            "device_pairs": sum(pw.on_device(genes[t.i], genes[t.j]) for t in my_tasks),
+            "total_pairs": problem.num_pairs, "launches": _launches(),
+        }))
 
-    total = problem.num_pairs
-    penalties = np.full(total, -1, dtype=np.int64)
-    hash_bytes = np.zeros((total, 128), dtype=np.uint8)
-    for r in my_results:
-        penalties[r.task_id] = r.penalty
-        hash_bytes[r.task_id] = np.frombuffer(r.problem_hash.encode("ascii"), dtype=np.uint8)
+        total = problem.num_pairs
+        penalties = np.full(total, -1, dtype=np.int64)
+        hash_bytes = np.zeros((total, 128), dtype=np.uint8)
+        for r in my_results:
+            penalties[r.task_id] = r.penalty
+            hash_bytes[r.task_id] = np.frombuffer(r.problem_hash.encode("ascii"), dtype=np.uint8)
 
-    with timer.stage("allgather_merge"):
-        # Max-merge: each task is one process's; the others hold -1 / 0.
-        merged = []
-        for local in (torch.from_numpy(penalties), torch.from_numpy(hash_bytes)):
-            parts = [torch.empty_like(local) for _ in range(nproc)]
-            dist.all_gather(parts, local)
-            merged.append(torch.stack(parts).amax(dim=0).numpy())
-        penalties, hash_bytes = merged
+        with timer.stage("allgather_merge"):
+            # Max-merge: each task is one process's; the others hold -1 / 0.
+            merged = []
+            for local in (torch.from_numpy(penalties), torch.from_numpy(hash_bytes)):
+                parts = [torch.empty_like(local) for _ in range(nproc)]
+                dist.all_gather(parts, local)
+                merged.append(torch.stack(parts).amax(dim=0).numpy())
+            penalties, hash_bytes = merged
 
-    with timer.stage("hash_chain"):
-        chain = chain_hashes(bytes(hash_bytes[tid]).decode("ascii") for tid in range(total))
-    log.info("stage times:\n%s", timer.report())
-    return KWayResult(
-        chain_hash=chain,
-        penalties=[int(p) for p in penalties],
-        pair_results=my_results if keep_alignments else None,
-    )
+        with timer.stage("hash_chain"):
+            chain = chain_hashes(bytes(hash_bytes[tid]).decode("ascii") for tid in range(total))
+        log.info("stage times:\n%s", timer.report())
+        return KWayResult(
+            chain_hash=chain,
+            penalties=[int(p) for p in penalties],
+            pair_results=my_results if keep_alignments else None,
+        )

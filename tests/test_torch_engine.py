@@ -173,7 +173,8 @@ def test_multi_device_split(monkeypatch, shards_seen, data_dir, fill_mode):
 
 def test_run_batched_keeps_input_order(monkeypatch):
     """Shards that finish in reverse order still come back in task order."""
-    def slow_first(genes, pairs, pxy, pgap, *, device, rb, snap_k, on_result=None, config=None):
+    def slow_first(genes, pairs, pxy, pgap, *, device, rb, snap_k, on_result=None, config=None,
+                   job=None):
         time.sleep(0.3 if (1, 0) in pairs else 0.0)
         out = [(10 * i + j, f"{i}", f"{j}") for i, j in pairs]
         for idx, triple in enumerate(out):
