@@ -9,7 +9,9 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
    with ptxas's registers and spills for each;
 2. the fill kernel against ``band_fill_ref`` on the card, on three pairs of
    2,000-5,000 characters at rb = 1023 (several bands, several snapshots a
-   band) and on one pair at the main path's geometry: score, bottom rows
+   band) and on one pair at the main path's geometry, at rb 8191 and at the
+   height ``ops/band_fill.py::band_height`` narrows it to on this card:
+   score, bottom rows
    and every snapshot entry that is a DP cell must be equal as int32; then
    the pipelined fill with snapshots on and off, every entry equal: 20 bands
    of one pair (20,000 x 17,000 at rb 1023), more items than resident
@@ -444,7 +446,9 @@ def spec_cap(cfg, smi):
     from msa_tpu_torch.ops import batch
     from msa_tpu_torch.ops import nw_striped as ns
     from msa_tpu_torch.ops import walk as wk
+    from msa_tpu_torch.utils import timing
     from msa_tpu_torch.utils.hashing import pair_hash
+    from torch.profiler import ProfilerActivity, profile
 
     gold = sc.load()
     x, y = sc.make_pair()
@@ -452,31 +456,48 @@ def spec_cap(cfg, smi):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     kernels = {"band_fill": bf.band_fill, "walk": wk.walk, "striped_fill": ns.striped_fill}
     striped_launches = 0
+    with profile(activities=[ProfilerActivity.CPU]):  # its first start takes seconds
+        pass
 
     for key, (a, b) in (("xy", (x, y)), ("yx", (y, x))):
         want = gold[key]
-        plan = bf.plan_pairs([len(a), len(b)], [(0, 1)], cfg.rb, cfg.snap_k)
-        bound_ms, bound_by = band_fill_bound([a, b], [(0, 1)], plan)
+        # The default route runs at the banded pipeline's height on this
+        # card (ops/band_fill.py::band_height); the striped routes at cfg.rb.
+        heights = {"default": bf.band_height([len(a), len(b)], [(0, 1)], cfg.rb, sms),
+                   "striped": cfg.rb}
+        plans = {route: bf.plan_pairs([len(a), len(b)], [(0, 1)], rb, cfg.snap_k)
+                 for route, rb in heights.items()}
+        bounds = {route: band_fill_bound([a, b], [(0, 1)], p) for route, p in plans.items()}
         # The walk's bound, from its own output on this pair (uncounted launches).
         table = torch.from_numpy(bf.gene_table([a, b])).cuda()
-        fill = bf.band_fill(table, plan, 3, 2)
-        wplan = wk.banded_walk_plan(plan)
+        fill = bf.band_fill(table, plans["default"], 3, 2)
+        wplan = wk.banded_walk_plan(plans["default"])
         walk_bound_ms, walk_bound_by = walk_bound(walk_work(
             *wk.walk(table, wplan, fill.rows, fill.snaps, 3, 2), wplan))
         del table, fill
         for route in ("default", "striped_2", "striped_4", "default", "striped_2", "striped_4"):
+            plan = plans[route.split("_")[0]]
+            bound_ms, bound_by = bounds[route.split("_")[0]]
             for fn in kernels.values():
                 fn.launches = fn.pairs = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             if route == "default":
-                with launch_events(batch, ["band_fill", "walk"]) as spans:
+                # Recorded (a CPU-only profiler turns the job recorder on),
+                # so the height and bands are what the pipeline launched.
+                with launch_events(batch, ["band_fill", "walk"]) as spans, \
+                        profile(activities=[ProfilerActivity.CPU]), timing.job() as job:
                     got = batch.align_pairs_batched([a, b], [(0, 1)], 3, 2, device=card, rb=cfg.rb,
-                                                    snap_k=cfg.snap_k, config=cfg)[0]
+                                                    snap_k=cfg.snap_k, config=cfg, job=job)[0]
                 torch.cuda.synchronize()
                 fill = spans["band_fill"][0][0].elapsed_time(spans["band_fill"][0][1])
                 route_fill = fill
+                (enqueued,) = job.job.named("batch.fill_enqueue")
+                launched = (enqueued.attrs["rb"], enqueued.attrs["bands"])
+                if launched != (plan.rb, plan.num_items):
+                    raise AssertionError(f"spec cap {key}: the pipeline launched rb, bands"
+                                         f" {launched}, band_height gives {plan.rb}, {plan.num_items}")
             else:
                 # Events around each stripe's launch, on its thread's stream:
                 # the fill is the span from the first stripe's start to the
@@ -505,7 +526,8 @@ def spec_cap(cfg, smi):
                   penalty=got[0], pair_hash=want["pair_hash"][:16], golden=True,
                   fill_ms=fill, route_fill_ms=route_fill, walk_ms=walk_ms, e2e_ms=e2e,
                   peak_device_bytes=torch.cuda.max_memory_allocated(),
-                  items=plan.num_items, sms=sms, bound_ms=bound_ms, bound_by=bound_by,
+                  rb=plan.rb, items=plan.num_items, sms=sms, bound_ms=bound_ms,
+                  bound_by=bound_by,
                   share_of_bound=bound_ms / fill, walk_bound_ms=walk_bound_ms,
                   walk_bound_by=walk_bound_by, walk_share_of_bound=walk_bound_ms / walk_ms,
                   launches=launches, card=smi)
@@ -1881,11 +1903,18 @@ def cards_main() -> int:
     # 3. the spec-cap pair: one launch, stripes on one card, stripes on D cards
     gold = sc.load()
     x, y = sc.make_pair()
+    sms = torch.cuda.get_device_properties(cards[0]).multi_processor_count
     routes = ["one_launch"] + [f"{where}_{d}" for d in widths for where in ("one_card", "cards")]
     for key, (a, b) in (("xy", (x, y)), ("yx", (y, x))):
         want = gold[key]
         plan = bf.plan_pairs([len(a), len(b)], [(0, 1)], cfg.rb, cfg.snap_k)
-        bound_ms, bound_by = band_fill_bound([a, b], [(0, 1)], plan)
+        # One launch fills at the banded pipeline's height on this card
+        # (ops/band_fill.py::band_height), as align_pairs_batched does; the
+        # stripes at cfg.rb.
+        one_plan = bf.plan_pairs([len(a), len(b)], [(0, 1)], bf.band_height(
+            [len(a), len(b)], [(0, 1)], cfg.rb, sms), cfg.snap_k)
+        bounds = {plan.rb: band_fill_bound([a, b], [(0, 1)], plan),
+                  one_plan.rb: band_fill_bound([a, b], [(0, 1)], one_plan)}
         pair_tables = {d: torch.from_numpy(bf.gene_table([a, b])).to(d) for d in cards}
         for route in routes + routes[::-1]:
             if route == "one_launch":
@@ -1895,9 +1924,11 @@ def cards_main() -> int:
                 devices = [cards[0]] * int(d) if where == "one_card" else cards[: int(d)]
             for dev in cards:
                 torch.cuda.reset_peak_memory_stats(dev)
+            route_plan = one_plan if route == "one_launch" else plan
+            bound_ms, bound_by = bounds[route_plan.rb]
             if route == "one_launch":
                 # [1]: the fill's output is freed before the route runs.
-                fill_ms = wall_ms(lambda: bf.band_fill(pair_tables[cards[0]], plan, 3, 2))[1]
+                fill_ms = wall_ms(lambda: bf.band_fill(pair_tables[cards[0]], one_plan, 3, 2))[1]
                 got, e2e = wall_ms(lambda: batch.align_pairs_batched(
                     [a, b], [(0, 1)], 3, 2, device=cards[0], rb=cfg.rb, snap_k=cfg.snap_k,
                     config=cfg)[0])
@@ -1911,6 +1942,7 @@ def cards_main() -> int:
                 raise AssertionError(f"spec cap {key} {route}: not the oracle's alignment")
             phase("cards_spec_cap", orientation=key, route=route, devices=[str(d) for d in devices],
                   penalty=got[0], pair_hash=want["pair_hash"][:16], golden=True,
+                  rb=route_plan.rb, bands=route_plan.num_items,
                   fill_host_ms=fill_ms, e2e_host_ms=e2e, bound_ms=bound_ms, bound_by=bound_by,
                   peak_device_bytes=[torch.cuda.max_memory_allocated(d) for d in cards],
                   card=smi[0])
@@ -1968,6 +2000,11 @@ def main() -> int:
     main_geom = random_genes(rng, [20000, 17000])
     cfg = TorchConfig()
     timed = check_case("main_geometry", main_geom, [(0, 1)], rb=cfg.rb, snap_k=cfg.snap_k)
+    # The same pair at the height the banded pipeline launches it at on this
+    # card (ops/band_fill.py::band_height: 10 bands at 2047 on an H100).
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check_case("main_geometry_narrowed", main_geom, [(0, 1)],
+               rb=bf.band_height([20000, 17000], [(0, 1)], cfg.rb, sms), snap_k=cfg.snap_k)
     # The pipelined fill: 20 bands a pair; more items than resident blocks;
     # skewed pairs (one band of 70,000 steps; nine bands of 6 columns).
     ref20, one20 = check_fill("twenty_bands", main_geom, [(0, 1)], rb=1023, snap_k=cfg.snap_k)

@@ -23,10 +23,13 @@ MAX_RB = CELLS_PER_THREAD * MAX_THREADS - 1
 
 @dataclasses.dataclass
 class TorchConfig:
-    # Band height: rows of the DP swept together by one thread block. The
-    # default fills a block: rb + 1 = 8192 lanes = 1024 threads x 8 cells.
-    # On an H100 it was the fastest of rb 1023, 2047, 4095 and 8191 for
-    # big13's banded fill and walk together (chip_smoke.py's rb sweep, PERF.md).
+    # Tallest band height of the banded pipeline: rows of the DP swept
+    # together by one thread block. The default fills a block: rb + 1 = 8192
+    # lanes = 1024 threads x 8 cells. On an H100 it was the fastest of rb
+    # 1023, 2047, 4095 and 8191 for big13's banded fill and walk together
+    # (chip_smoke.py's rb sweep, PERF.md). On a card the banded pipeline
+    # narrows it for a call whose bands would leave SMs idle, down to 2047
+    # at the lowest (ops/band_fill.py::band_height); below 2048 it is kept.
     rb: int = MAX_RB
     # Snapshot stride of the fill == segment length of the walk (one knob,
     # as in msa_tpu.config.snap_k).

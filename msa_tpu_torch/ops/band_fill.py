@@ -138,6 +138,29 @@ def plan_pairs(
     return Plan(params, rb, snap_k, rows_off, snap_off, table, chunk)
 
 
+# Lowest band height ``band_height`` narrows to. A lone 90,000 x 85,000
+# pair's score fill on an H100 took 38.1-38.8 ms at rb 2047 and 38.3-38.8 ms
+# at 1023 (PERF.md), while every band more costs the walk a segment start.
+BAND_FLOOR = 2047
+
+
+def band_height(lengths: Sequence[int], pairs: Sequence[Tuple[int, int]], rb: int,
+                sms: int) -> int:
+    """Band height for one fill of ``pairs``: the tallest rung of rb,
+    (rb + 1) // 2 - 1, ... whose bands (sum of ceil(m / rung)) number at
+    least ``sms``, so that the persistent grid covers the card's SMs; else
+    min(rb, BAND_FLOOR), never lower. A fill has one block a band and a
+    pair's bands run one after another, so a few tall bands leave most SMs
+    idle while narrower ones start down the chain sooner."""
+    floor = min(rb, BAND_FLOOR)
+    rung = rb
+    while rung > floor:
+        if sum(-(-int(lengths[xg]) // rung) for xg, _ in pairs) >= sms:
+            return rung
+        rung = (rung + 1) // 2 - 1
+    return floor
+
+
 @dataclasses.dataclass
 class Stripe:
     """Bands ``lo`` .. ``hi`` - 1 of a lone pair, filled by one launch, and

@@ -7,9 +7,15 @@ the longest walks start earliest, are cut into waves whose device bytes
 half of ``device_budget``, read anew before each wave: two waves are in
 flight at once. However large the budget, a wave takes at most about half
 the pairs' bytes (``HALVES``), so that the first half's walk and host decode
-run beside the second half's fill. Each wave is one fill launch (every band
-of every pair a work item of the persistent grid) on the current stream and
-one walk launch on a second stream, so wave w walks while wave w + 1 fills.
+run beside the second half's fill. On a card the call's band height is
+``band_height``'s: the given rb, narrowed (to 2047 at the lowest) while the
+call's bands would leave some of the card's SMs without a block (a lone
+100,000-row pair fills in 13 bands at 8191, on 13 of an H100's 132 SMs); on
+the CPU it is the given rb. The count is the call's own pairs: each shard of
+a job split over devices or processes is a call, and chooses alone. Each
+wave is one fill launch (every band of every pair a work item of the
+persistent grid) on the current stream and one walk launch on a second
+stream, so wave w walks while wave w + 1 fills.
 A wave's scores, move words and counts come back by non-blocking copies
 after an event, and ``decode_workers`` host threads turn each pair's moves
 into its alignment strings (``decode_moves`` -> ``moves_to_alignment``). A
@@ -40,6 +46,7 @@ from msa_tpu_torch.ops.band_fill import (
     P_S,
     Plan,
     band_fill,
+    band_height,
     device_budget,
     gene_table,
     plan_pairs,
@@ -80,6 +87,8 @@ def align_pairs_batched(
 ) -> List[Tuple[int, str, str]]:
     """(penalty, align1, align2) for each (x gene, y gene) pair, in order.
 
+    ``rb`` is the tallest band height: on a card every wave is sized,
+    planned and walked at ``band_height(lengths, pairs, rb, SMs)``.
     ``config`` gives the device budget (``hbm_budget``) and the decode
     threads (``decode_workers``). ``on_result(idx, triple)`` fires once per
     pair, with the caller's index, from a decode thread as the pair's
@@ -102,6 +111,9 @@ def align_pairs_batched(
     with span(job, "batch.size"):
         config = config or TorchConfig()
         lengths = [len(g) for g in genes]
+        if device.type == "cuda":
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            rb = band_height(lengths, pairs, rb, sms)
         order = sorted(range(num),
                        key=lambda idx: -(lengths[pairs[idx][0]] + lengths[pairs[idx][1]]))
         sizes = pair_bytes(plan_pairs(lengths, [pairs[idx] for idx in order], rb, snap_k)).tolist()
@@ -194,7 +206,8 @@ def align_pairs_batched(
                 fill = band_fill(table, plan, pxy, pgap)
                 if sp is not None:
                     cells = int((plan.params[:, P_M] * plan.params[:, P_N]).sum())
-                    sp.attrs.update(pairs=len(wave), cells=cells, bytes=sum(sizes[start:end]))
+                    sp.attrs.update(pairs=len(wave), cells=cells, bytes=sum(sizes[start:end]),
+                                    rb=plan.rb, bands=plan.num_items)
             # The previous wave walks beside this fill; its pairs go to the
             # decoders before the next walk is launched.
             if pending is not None:

@@ -14,7 +14,10 @@ printed and appended to ``--out`` (tabled by ``plot_bench.py``).
   ``--snap-ks``, ``--rbs``, ``--fill-segments`` and ``--conveyors``, a fresh
   CLI process per rep with those ``MSA_TPU_TORCH_*`` settings on
   ``--dataset`` (big13 by default), gated on its golden
-  (``conformance.golden_table``); GCUPS from the ``Time:`` line. The conveyor's
+  (``conformance.golden_table``); GCUPS from the ``Time:`` line. An ``--rbs``
+  entry is the banded pipeline's tallest height (``ops/band_fill.py::
+  band_height`` narrows it on a card when a call's bands leave SMs idle; on
+  one card big13's 497 bands keep every rung from 2047 up). The conveyor's
   band height is the largest multiple of snap_k whose lanes fit one block.
   The JAX grid's ``p_group``, ``rb_align`` and ``walk_scan_groups`` are TPU
   knobs without a counterpart here.

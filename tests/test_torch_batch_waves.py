@@ -5,11 +5,14 @@ three or more waves gives the triples of one wave, and both equal the JAX
 package's ``align_pairs_batched`` (interpret mode, its small-geometry test
 settings) and the numpy oracle; no wave plans more device bytes than half
 the budget; ``on_result`` fires once per pair with the caller's index; a
-pair over the budget raises. Also the walk kernel's shared-memory size, the
-segment replay that measures a walk, and the shared device budget.
+pair over the budget raises. Also the band height a call runs at
+(``band_height``), the walk kernel's shared-memory size, the segment replay
+that measures a walk, and the shared device budget.
 """
 
 from __future__ import annotations
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -20,8 +23,11 @@ from msa_tpu_torch.config import TorchConfig
 from msa_tpu_torch.ops import band_fill as bf
 from msa_tpu_torch.ops import batch
 from msa_tpu_torch.ops import walk as wk
+from msa_tpu_torch.utils.msaio import parse_file
+from msa_tpu_torch.utils.tasks import pair_task_list
 
 CPU = torch.device("cpu")
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _genes(seed, lengths):
@@ -138,6 +144,77 @@ def test_pair_bytes_are_the_plans_buffers():
     words = wk.banded_walk_plan(plan).moves_len
     assert int(batch.pair_bytes(plan).sum()) == 4 * (
         plan.snaps_len + plan.rows_len + plan.num_pairs + words + plan.num_pairs)
+
+
+# -- the band height a call runs at ------------------------------------------
+
+SPEC_CAP = (100_352, 100_000)
+
+
+def _all_pairs(lengths):
+    lengths = list(lengths)
+    return lengths, [(t.i, t.j) for t in pair_task_list(len(lengths))]
+
+
+def _big13():
+    genes = parse_file(str(REPO / "data" / "mseq-big13-example.txt")).genes
+    return _all_pairs(len(g) for g in genes)
+
+
+def _big13_shard(shard, shards):
+    """One shard of big13's pairs as ``models/kway.py::_run_batched`` splits
+    them over ``shards`` devices (LPT by m * n); each shard is a call of its own."""
+    from msa_tpu_torch.parallel.schedule import lpt_schedule
+
+    lengths, _ = _big13()
+    tasks = pair_task_list(len(lengths))
+    split = lpt_schedule([(t, lengths[t.i] * lengths[t.j]) for t in tasks], shards)
+    return lengths, [(t.i, t.j) for t in split[shard]]
+
+
+def _pod64():
+    from msa_tpu_torch.scripts.gen_workload import make_problem
+
+    return _all_pairs(len(g) for g in make_problem(k=64).genes)
+
+
+BAND_CASES = {
+    # name: (lengths and pairs, given rb, chosen rb, bands at the chosen rb)
+    "spec_cap_xy": (lambda: (list(SPEC_CAP), [(0, 1)]), 8191, 2047, 50),
+    "spec_cap_yx": (lambda: (list(SPEC_CAP), [(1, 0)]), 8191, 2047, 49),
+    "spec_cap_k3": (lambda: _all_pairs(SPEC_CAP + (100_000,)), 8191, 2047, 3 * 49),
+    "big13": (_big13, 8191, 8191, 497),
+    # Split over two devices each shard still covers the SMs; over four,
+    # each shard's 119-130 bands do not, so it narrows to 4095.
+    "big13_shard_0_of_2": (lambda: _big13_shard(0, 2), 8191, 8191, 245),
+    "big13_shard_0_of_4": (lambda: _big13_shard(0, 4), 8191, 4095, 229),
+    "big13_shard_1_of_4": (lambda: _big13_shard(1, 4), 8191, 4095, 245),
+    "big13_shard_2_of_4": (lambda: _big13_shard(2, 4), 8191, 4095, 232),
+    "big13_shard_3_of_4": (lambda: _big13_shard(3, 4), 8191, 4095, 250),
+    "pod64": (_pod64, 8191, 8191, 3055),
+    "30_items_at_4095": (lambda: ([10 * 4095] * 3, [(0, 1), (1, 2), (2, 0)]), 8191, 2047, 3 * 21),
+    "140_items_at_4095": (lambda: ([8000] * 71, [(g, g + 1) for g in range(70)]), 8191, 4095, 140),
+    "off_the_ladder": (lambda: (list(SPEC_CAP), [(0, 1)]), 5000, 2047, 50),
+    "rb_255_kept": (lambda: (list(SPEC_CAP), [(0, 1)]), 255, 255, 394),
+    "rb_64_kept": (lambda: (list(SPEC_CAP), [(0, 1)]), 64, 64, 1568),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_band_height_covers_the_sms_down_to_the_floor(case):
+    """At an H100's 132 SMs: a call whose bands leave SMs idle at the given
+    rb narrows down the ladder rb, (rb + 1) // 2 - 1, ... until they cover
+    them, and stops at 2047; big13 and the pods keep 8191, and so does each
+    of big13's shards over two devices, while each over four narrows to
+    4095; an rb under 2048 comes back as given. The plan at the chosen
+    height has the bands."""
+    make, given, want, bands = BAND_CASES[case]
+    lengths, pairs = make()
+    got = bf.band_height(lengths, pairs, given, 132)
+    assert got == want
+    plan = bf.plan_pairs(lengths, pairs, got, 1024)
+    assert plan.num_items == bands
+    assert got == min(given, bf.BAND_FLOOR) or plan.num_items >= 132
 
 
 def test_device_budget(monkeypatch):

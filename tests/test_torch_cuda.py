@@ -217,6 +217,35 @@ def test_two_shards_on_one_card_match_oracle(card, monkeypatch):
         assert (got.chain_hash, got.penalties) == (want.chain_hash, want.penalties)
 
 
+@pytest.mark.parametrize("order,key,bands", [((0, 1), "yx", 49), ((1, 0), "xy", 50)])
+def test_spec_cap_job_fills_at_the_narrowed_band_height(card, order, key, bands):
+    """The 100,352 x 100,000 pair as a k = 2 job: 13 bands at rb 8191 would
+    fill 13 of the card's SMs, so the banded pipeline launches at 2047 (the
+    job aligns gene 1 against gene 0: 49 bands of 100,000 rows, or 50 of
+    100,352), and the answer is the oracle's in both orientations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from msa_tpu_torch.goldens import spec_cap as sc
+    from msa_tpu_torch.models.kway import align_kway
+    from msa_tpu_torch.utils import timing
+    from msa_tpu_torch.utils.hashing import chain_hashes
+    from msa_tpu_torch.utils.msaio import Problem
+
+    pair = sc.make_pair()
+    problem = Problem(pxy=sc.PXY, pgap=sc.PGAP, genes=tuple(pair[g] for g in order))
+    gold = sc.load()[key]
+    timing.RECORDER.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = align_kway(problem, backend="cuda", keep_alignments=True,
+                         config=TorchConfig(local_devices=1))
+    (job,) = timing.recorded_jobs()
+    fills = job.named("batch.fill_enqueue")
+    assert [(s.attrs["rb"], s.attrs["bands"]) for s in fills] == [(2047, bands)]
+    assert got.penalties == [gold["penalty"]] == [124_321]
+    assert got.pair_results[0].problem_hash == gold["pair_hash"]
+    assert got.chain_hash == chain_hashes([gold["pair_hash"]])
+
+
 @pytest.mark.parametrize("stripes", [2, 3, 5])
 def test_striped_fill_equals_one_launch(card, stripes):
     """Stripes of one pair on one card, each band's relay into the next

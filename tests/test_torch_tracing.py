@@ -119,6 +119,21 @@ def test_a_traced_job_records_every_stage_nested_under_its_id(entry):
     assert sum(s.attrs["pairs"] for s in fills) == 6
 
 
+
+def test_a_fill_span_carries_its_band_height_and_bands():
+    """On the CPU the pipeline keeps the rb it is given; each fill's span
+    holds it and its plan's items, every band of the wave's pairs."""
+    problem, config = _problem(), _config()
+    timing.RECORDER.clear()
+    _profiled(lambda: _by_kway(problem, config))
+    (job,) = timing.recorded_jobs()
+    fills = job.named("batch.fill_enqueue")
+    lengths = [len(g) for g in problem.genes]
+    assert len(fills) >= 2 and {s.attrs["rb"] for s in fills} == {config.rb}
+    assert sum(s.attrs["bands"] for s in fills) == sum(
+        -(-lengths[i] // config.rb) for i in range(1, 4) for _ in range(i))
+
+
 def test_a_full_store_drops_and_counts_later_spans(monkeypatch):
     monkeypatch.setattr(timing.RECORDER, "limit", 5)
     timing.RECORDER.clear()
